@@ -1,4 +1,4 @@
-"""The SAS diet problem solved with the TPU-native general-form solver.
+"""The SAS diet problem solved with the general-form solver.
 
 Capability parity with reference ``examples/diet.py`` (same data, same
 expected optimum: cost 12.0813376...).

@@ -2,7 +2,7 @@
 
 The north-star batched use case: take a base model (here the SAS diet LP),
 generate thousands of scenarios (perturbed prices), and solve them all in a
-single compiled two-phase computation on TPU -- then reduce the results
+single compiled two-phase computation on the device -- then reduce the results
 on-device.  The reference library would loop this one solve at a time.
 
 Run: python examples/scenario_batch.py [num_scenarios]

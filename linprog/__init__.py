@@ -4,7 +4,7 @@ The reference library (agmuth/linear-programming) is imported as
 ``linprog.<module>``; this package mirrors its module layout
 (``simplex``, ``primal_solvers``, ``dual_solvers``, ``special_solvers``,
 ``preprocessing``, ``utils``, ``data_classes``, ``exceptions``) and
-re-exports the TPU-native implementations under the reference names, so
+re-exports the JAX implementations under the reference names, so
 existing user code switches backends by switching nothing at all.
 
 The reference's ``linprog/__init__.py`` is empty (no exports); ours re-exports

@@ -1,4 +1,4 @@
-"""Compat: reference ``linprog/dual_solvers.py`` -> TPU-native engines."""
+"""Compat: reference ``linprog/dual_solvers.py`` -> JAX engines."""
 
 from linprog_tpu.api import (
     DualNaiveSimplexSolver,

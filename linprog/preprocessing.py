@@ -1,4 +1,4 @@
-"""Compat: reference ``linprog/preprocessing.py`` -> TPU-native forms.
+"""Compat: reference ``linprog/preprocessing.py`` -> JAX forms.
 
 The reference exposes ``ProblemPreprocessingUtils`` with three staticmethods;
 this shim maps them onto :mod:`linprog_tpu.forms`.

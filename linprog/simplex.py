@@ -1,4 +1,4 @@
-"""Compat: reference ``linprog/simplex.py`` -> TPU-native general solver."""
+"""Compat: reference ``linprog/simplex.py`` -> JAX general solver."""
 
 from linprog_tpu.api import SimplexSolver
 

@@ -1,4 +1,4 @@
-"""Compat: reference ``linprog/special_solvers.py`` -> TPU-native engines."""
+"""Compat: reference ``linprog/special_solvers.py`` -> JAX engines."""
 
 from linprog_tpu.api import (
     BoundedVariablePrimalSimplexSolver,

@@ -1,4 +1,4 @@
-"""Compat: reference ``linprog/utils.py`` -> TPU-native kernel utilities.
+"""Compat: reference ``linprog/utils.py`` -> JAX kernel utilities.
 
 The divisions return NumPy arrays here (the reference surface is NumPy);
 device-side callers should use :mod:`linprog_tpu.utils` directly.

@@ -1,22 +1,24 @@
-"""linprog_tpu: a TPU-native linear-programming (simplex) framework.
+"""linprog_tpu: a batched linear-programming framework in JAX.
 
-Brand-new JAX/XLA/Pallas re-design with the capability surface of the
-reference NumPy library agmuth/linear-programming (see SURVEY.md): primal and
-dual revised simplex, two-phase method, bounded-variable simplex, the
-primal-dual algorithm, and a general-form front end -- plus what the
-reference never had: a fully batched ``vmap`` mode, mesh sharding across TPU
-slices, device-side status codes, and an explicit checkpointable solver state.
+A JAX/XLA design with the capability surface of the reference NumPy library
+agmuth/linear-programming (see SURVEY.md): primal and dual revised simplex,
+two-phase method, bounded-variable simplex, the primal-dual algorithm, and a
+general-form front end -- plus what the reference never had: a fully batched
+``vmap`` mode, mesh sharding across devices, device-side status codes, and
+an explicit checkpointable solver state.  It runs on NVIDIA GPUs (measured
+on an H100) and, for the test suite, on the CPU.
 """
 
 import jax as _jax
 
-# MEASURED requirement on TPU (see docs/DESIGN.md): the MXU's default bf16
-# matmul passes make reduced costs inaccurate enough to flip pivot selections
-# and stop simplex at wrong vertices, and keep PDHG from converging.  Every
-# matmul/einsum in the package must therefore run at HIGHEST precision --
-# enforced globally here so no code path (XLA fallback, TP, bounded,
-# primal-dual) can silently regress.  Explicit ``precision=`` kwargs at the
-# Pallas/dot_general call sites remain as local documentation.
+# On NVIDIA GPUs XLA may run f32 matmuls on the tensor cores as TF32 (10
+# mantissa bits, ~1e-3 relative error): reduced costs then flip pivot
+# selections and stop simplex at wrong vertices, and PDHG stops converging.
+# Every matmul/einsum in the package must therefore run at HIGHEST (full
+# f32) precision -- enforced globally here so no code path (TP, bounded,
+# primal-dual) can silently regress; chip_smoke.py checks it on the card.
+# Explicit ``precision=`` kwargs at dot_general call sites remain as local
+# documentation.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from .api import (

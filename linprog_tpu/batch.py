@@ -1,6 +1,6 @@
-"""Batched LP solving: thousands of independent instances per chip.
+"""Batched LP solving: thousands of independent instances per device.
 
-This is the headline TPU capability the reference (a strictly single-problem,
+This is the headline capability the reference (a strictly single-problem,
 single-thread NumPy library -- SURVEY.md section 2.2) has no counterpart for:
 the whole two-phase simplex pipeline runs inside ONE jitted computation,
 ``vmap``-ped over a batch of same-shape LP instances.  Per-lane termination
@@ -8,7 +8,7 @@ is handled by the engine's status codes (finished lanes freeze while the
 batch keeps stepping), and optional periodic refactorization bounds
 eta-update drift on long solves.
 
-Design notes (TPU-first):
+Design notes:
 
 * all shapes static: one compiled kernel serves every batch of a given
   ``(B, m, n)``;
@@ -37,9 +37,9 @@ from .results import BatchResult
 def _run_chunked(c, A, b, states, allowed, maxiters, cfg: SolverConfig, mode: str):
     """Drive the batch to termination.
 
-    The primal mode routes through the explicitly-batched engine (tuned
-    einsum or Pallas kernels per ``cfg.kernels``, periodic refactorization);
-    the dual mode uses the vmapped per-lane engine.
+    The primal mode routes through the explicitly-batched engine (batched
+    einsums, periodic refactorization); the dual mode uses the vmapped
+    per-lane engine.
     """
     from .engine_batched import run_batched
 
@@ -310,25 +310,17 @@ def solve_batch_bounded(
     be finite (clamp with :func:`linprog_tpu.utils.get_bounds_on_bfs`).
     """
     from . import bounded as bnd
-    from .engine_batched import _mega_kernel_fits
     from .refine import dd_dot, dd_residual, refine_bfs
 
     basis = jnp.asarray(basis, jnp.int32)
     var_state = jnp.asarray(var_state, jnp.int8)
-    B, m, n = A.shape
-    if cfg.kernels == "pallas" and _mega_kernel_fits(m, n, with_at=False):
-        states = jax.vmap(bnd.make_bounded_state)(
-            A, b, lb, ub, basis, var_state
-        )
-        out = bnd.run_bounded_batched_pallas(
-            c, A, b, lb, ub, states, maxiters, cfg
-        )
-    else:
-        def one(ci, Ai, bi, lbi, ubi, basisi, vsi):
-            state = bnd.make_bounded_state(Ai, bi, lbi, ubi, basisi, vsi)
-            return bnd.run_bounded(ci, Ai, bi, lbi, ubi, state, maxiters, cfg)
+    B = A.shape[0]
 
-        out = jax.vmap(one)(c, A, b, lb, ub, basis, var_state)
+    def one(ci, Ai, bi, lbi, ubi, basisi, vsi):
+        state = bnd.make_bounded_state(Ai, bi, lbi, ubi, basisi, vsi)
+        return bnd.run_bounded(ci, Ai, bi, lbi, ubi, state, maxiters, cfg)
+
+    out = jax.vmap(one)(c, A, b, lb, ub, basis, var_state)
     basis_out, var_out = out.basis, out.var_state
     iters, status = out.iters, out.status
     status = jnp.where(status == st.RUNNING, st.ITER_LIMIT, status)

@@ -1,6 +1,6 @@
 """Bounded-variable primal simplex: ``min c'x  s.t. Ax = b, lb <= x <= ub``.
 
-TPU-native rebuild of the reference ``BoundedVariablePrimalSimplexSolver``
+JAX rebuild of the reference ``BoundedVariablePrimalSimplexSolver``
 (reference ``linprog/special_solvers.py:94-343``).  The reference tracks
 nonbasic-at-lower/upper-bound *index sets* grown and shrunk with
 ``np.delete``/``np.append`` -- dynamic shapes that cannot exist under jit.
@@ -216,101 +216,6 @@ def run_bounded(c, A, b, lb, ub, state: BoundedState, maxiters,
 @partial(jax.jit, static_argnames=("cfg",))
 def run_bounded_jit(c, A, b, lb, ub, state, maxiters, cfg: SolverConfig):
     return run_bounded(c, A, b, lb, ub, state, maxiters, cfg)
-
-
-def run_bounded_batched_pallas(c, A, b, lb, ub, state: BoundedState,
-                               maxiters, cfg: SolverConfig) -> BoundedState:
-    """Segment driver for the bounded-variable mega-kernel.
-
-    ``state`` is a batched :class:`BoundedState` (leading ``[B]`` dim).
-    Same contract as the primal mega-kernel driver: up to
-    ``cfg.refactor_every`` whole iterations per lane in VMEM, exact
-    refactorization (with the non-finite guard) between segments.
-    """
-    from .engine_batched import _mega_kernel_fits
-    from .ops.bounded_kernel import solve_bounded_segment
-
-    B, m, n = A.shape
-    seg_len = cfg.refactor_every if cfg.refactor_every > 0 else (1 << 30)
-    maxiters = jnp.asarray(maxiters, jnp.int32)
-    maxit_arr = jnp.reshape(maxiters, (1, 1, 1))
-
-    use_at = _mega_kernel_fits(m, n, with_at=True)
-    AT = (jnp.swapaxes(A, 1, 2) if use_at
-          else jnp.zeros((B, 1, 128), A.dtype))
-
-    c_row = c[:, None, :]
-    lb_row = lb[:, None, :]
-    ub_row = ub[:, None, :]
-    invBT = jnp.swapaxes(state.inv_B, 1, 2)
-    bfs = state.bfs[:, None, :]
-    cB = jnp.take_along_axis(c, state.basis, axis=1)[:, None, :]
-    basis = state.basis[:, None, :]
-    vstate = state.var_state.astype(A.dtype)[:, None, :]
-    lbB = jnp.take_along_axis(lb, state.basis, axis=1)[:, None, :]
-    ubB = jnp.take_along_axis(ub, state.basis, axis=1)[:, None, :]
-    iters = state.iters[:, None, None]
-    status = state.status[:, None, None]
-
-    def seg(carry):
-        invBT, bfs, cB, basis, vstate, lbB, ubB, iters, status = carry
-        return solve_bounded_segment(
-            A, AT, c_row, lb_row, ub_row, maxit_arr, invBT, bfs, cB,
-            basis, vstate, lbB, ubB, iters, status,
-            seg_len=seg_len, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
-            use_at=use_at, unroll=cfg.unroll, packed=cfg.packed_select,
-        )
-
-    def any_running(carry):
-        iters, status = carry[-2], carry[-1]
-        return jnp.any(
-            (status[:, 0, 0] == st.RUNNING) & (iters[:, 0, 0] < maxiters)
-        )
-
-    def body(carry):
-        carry = seg(carry)
-        invBT, bfs, cB, basis, vstate, lbB, ubB, iters, status = carry
-        flat_basis = basis[:, 0, :]
-        run0 = status[:, 0, 0] == st.RUNNING
-        # exact bfs: x_B = inv_B (b - A_N x_N) with x_N from var_state
-        vs = vstate[:, 0, :]
-        x_n = jnp.where(vs == 0.0, lb, jnp.where(vs == 1.0, ub, 0.0))
-        rhs = b - jnp.einsum("bmn,bn->bm", A, x_n)
-        if cfg.compact_refactor:
-            from .engine_batched import compact_refactorize
-
-            inv, fresh_bfs = compact_refactorize(A, rhs, flat_basis, run0)
-        else:
-            inv = jnp.linalg.inv(
-                jnp.take_along_axis(A, flat_basis[:, None, :], axis=2)
-            )
-            fresh_bfs = jnp.einsum("bmk,bk->bm", inv, rhs)
-        ok = jnp.all(jnp.isfinite(inv), axis=(1, 2)) & jnp.all(
-            jnp.isfinite(fresh_bfs), axis=1
-        )
-        run = status[:, 0, 0] == st.RUNNING
-        status = jnp.where(
-            (run & ~ok)[:, None, None], st.NUMERICAL_ERROR, status
-        ).astype(jnp.int32)
-        take = (run & ok)[:, None, None]
-        invBT = jnp.where(take, jnp.swapaxes(inv, 1, 2), invBT)
-        bfs = jnp.where(take, fresh_bfs[:, None, :], bfs)
-        return (invBT, bfs, cB, basis, vstate, lbB, ubB, iters, status)
-
-    carry = (invBT, bfs, cB, basis, vstate, lbB, ubB, iters, status)
-    if cfg.refactor_every > 0:
-        carry = lax.while_loop(any_running, body, carry)
-    else:
-        carry = seg(carry)
-    invBT, bfs, cB, basis, vstate, lbB, ubB, iters, status = carry
-    return BoundedState(
-        basis=basis[:, 0, :],
-        inv_B=jnp.swapaxes(invBT, 1, 2),
-        bfs=bfs[:, 0, :],
-        var_state=vstate[:, 0, :].astype(jnp.int8),
-        iters=iters[:, 0, 0],
-        status=status[:, 0, 0],
-    )
 
 
 def expand_bounded_bfs(state: BoundedState, lb, ub) -> jax.Array:

@@ -1,25 +1,20 @@
-"""Per-chip calibration of solver-family regime boundaries.
+"""Per-device calibration of solver-family regime boundaries.
 
-The auto-router's crossover points (simplex / IPM / IPM+crossover / PDHG)
-and the tuned refactor-segment knees are MEASUREMENTS, not constants: they
-were taken on a v5e-1 and would silently mis-route on a different chip
-(VERDICT r3 weak item 6).  This module keeps them in ONE data file
-(``linprog_tpu/data/calibration.json``) keyed by ``device_kind``, with the
-v5e numbers as the ``"default"`` entry, and exposes:
+The auto-router's crossover points (simplex / IPM / IPM+crossover / PDHG),
+the crossover-cleanup cadence and the tuned refactor-segment knees are
+MEASUREMENTS, not constants.  This module keeps them in ONE data file
+(``linprog_tpu/data/calibration.json``) keyed by JAX's ``device_kind``
+and exposes:
 
-* :func:`get_table` -- the resolved table for the current (or named) chip;
+* :func:`get_table` -- the table for the current (or named) device.  It
   reads the JSON file once, honors the ``LINPROG_TPU_CALIBRATION`` env var
-  (a path to an override file) and any :func:`set_table` injection.
+  (a path to an override file) and any :func:`set_table` injection.  A
+  device with no entry is an error, never a silent default: routing one
+  device by another's timings picks the wrong family.
 * :func:`set_table` / :func:`reset_table` -- programmatic override, used
-  by tests (an injected fake-measurement table must flip the routing) and
-  by users porting to a new chip.
-* :func:`calibrate` -- measure the family crossover on the LIVE device at
-  a few sizes and return a table dict (optionally persisting it), so a new
-  chip can derive its own thresholds instead of inheriting v5e's.
-
-The reference (a single-algorithm NumPy library) has no counterpart; this
-is infrastructure the multi-family TPU framework needs to stay honest
-across hardware generations.
+  by tests (an injected fake-measurement table must flip the routing).
+* :func:`calibrate` -- measure every threshold on the LIVE device and
+  return a table dict (optionally persisting it).
 """
 
 from __future__ import annotations
@@ -31,8 +26,22 @@ from typing import Optional
 _DATA_PATH = os.path.join(os.path.dirname(__file__), "data",
                           "calibration.json")
 
+REQUIRED_KEYS = (
+    "exact_simplex_max_m", "moderate_simplex_max_m", "pdhg_min_m",
+    "exact_eps", "cleanup_tuned_seg_max_m", "seg_by_m",
+)
+
+CALIBRATE_COMMAND = (
+    "python -c \"from linprog_tpu.calibration import calibrate; "
+    "calibrate(save_path='calibration_new.json')\""
+)
+
 _file_cache: Optional[dict] = None
 _override: Optional[dict] = None
+
+
+class UncalibratedDeviceError(LookupError):
+    """The calibration table has no (complete) entry for this device."""
 
 
 def _load_file() -> dict:
@@ -44,21 +53,11 @@ def _load_file() -> dict:
     return _file_cache
 
 
-def _packaged_default() -> dict:
-    """The shipped v5e ``"default"`` entry, read from the PACKAGED data
-    file regardless of any env/``set_table`` override -- so a partial
-    override table still falls back to complete defaults for the keys it
-    does not carry (instead of KeyErrors downstream in ``seg_for_m`` /
-    ``choose_family``)."""
-    with open(_DATA_PATH) as f:
-        return json.load(f)["default"]
-
-
 def set_table(table: dict) -> None:
     """Inject a calibration table (same schema as the JSON file).
 
-    ``table`` maps chip-kind names (and/or ``"default"``) to threshold
-    dicts.  Takes precedence over the data file until :func:`reset_table`.
+    ``table`` maps ``device_kind`` names to threshold dicts.  Takes
+    precedence over the data file until :func:`reset_table`.
     """
     global _override
     _override = table
@@ -72,27 +71,35 @@ def reset_table() -> None:
 
 
 def _device_kind() -> str:
-    try:
-        import jax
+    import jax
 
-        return jax.devices()[0].device_kind
-    except Exception:
-        return "default"
+    return jax.devices()[0].device_kind
 
 
 def get_table(device_kind: Optional[str] = None) -> dict:
-    """Resolved threshold dict for ``device_kind`` (default: live device).
+    """Threshold dict for ``device_kind`` (default: the live device).
 
-    Falls back to the ``"default"`` entry for unknown chips; individual
-    missing keys also fall back to the default entry's values, so a
-    partial per-chip table only needs the numbers that actually moved.
+    Raises :class:`UncalibratedDeviceError` when the table has no entry
+    for that device, or an entry that lacks one of :data:`REQUIRED_KEYS`;
+    the message names the command that measures one.
     """
     src = _override if _override is not None else _load_file()
     kind = device_kind or _device_kind()
-    base = _packaged_default()
-    base.update(src.get("default", {}))
-    base.update(src.get(kind, {}))
-    return base
+    entry = src.get(kind)
+    if entry is None:
+        raise UncalibratedDeviceError(
+            f"no calibration entry for device_kind {kind!r} (known: "
+            f"{sorted(k for k in src if not k.startswith('_'))}).  Measure "
+            f"one on that device with {CALIBRATE_COMMAND} and add its "
+            f"entry to linprog_tpu/data/calibration.json."
+        )
+    missing = [k for k in REQUIRED_KEYS if k not in entry]
+    if missing:
+        raise UncalibratedDeviceError(
+            f"calibration entry for {kind!r} lacks {missing}; re-measure "
+            f"it with {CALIBRATE_COMMAND}."
+        )
+    return dict(entry)
 
 
 def seg_for_m(m: int, device_kind: Optional[str] = None) -> int:
@@ -111,29 +118,33 @@ def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
               pdhg_sizes=(1024, 2048), pdhg_lanes: int = 16) -> dict:
     """Measure EVERY routing threshold on the live device.
 
-    Round-5 rework (VERDICT r4 weak item 5: the old hook measured only the
-    two simplex thresholds and inherited the other four keys from v5e).
     Per size in ``sizes`` (``lanes`` random dense instances, one warm-up
     run excluded from every timing):
 
     * ``seg_by_m`` -- the refactor-segment knee: the two-phase simplex
-      batch timed at each ``seg_grid`` value, argmin kept (terminal row
-      inherited for sizes beyond the grid).
+      batch timed at each ``seg_grid`` value, argmin kept.  Rows beyond
+      the grid are kept from this device's existing entry, if any; else
+      the largest size's knee becomes the terminal row.
     * ``moderate_simplex_max_m`` -- simplex (at its best seg) vs the RAW
       batched IPM, the leg the moderate-accuracy router actually
       dispatches (the round-4 version compared against the slower exact
       pipeline and over-extended the simplex regime).
     * ``exact_simplex_max_m`` -- simplex vs the IPM->crossover exact
       pipeline at ITS best cleanup config.
-    * ``xover_pallas_max_m`` -- the largest size where the mega-kernel
-      cleanup config (``tuned_config(m)``, budget 512) beats the
-      tight-refactor large-m config (``refactor_every=128, unroll=2``,
-      budget 2048); sizes where the mega kernel does not fit VMEM at
-      crossover shapes ``(m, 2m)`` route large automatically.
+    * ``cleanup_tuned_seg_max_m`` -- the largest size where the crossover
+      cleanup at the tuned segment length (``tuned_config(m)``, budget
+      512) beats the tight-refactor cadence (``refactor_every`` 128,
+      budget 2048); see :func:`linprog_tpu.router.exact_cleanup_config`.
+      It also decides the repair order in
+      :func:`linprog_tpu.router.solve_batch_exact`: beyond it (below
+      m=1536) lanes that fail to cross retry with the alternate basis
+      guess before the two-phase fallback.
     * ``exact_eps`` -- the accuracy-class boundary, derived from the RAW
       IPM's measured per-lane KKT floor (median of primal-residual /
       duality-gap scores at a tight target): requests below
-      ``10^floor(log10(floor/30))`` need the vertex-exact pipeline.
+      ``10^floor(log10(floor/30))`` need the vertex-exact pipeline.  It
+      is never below 1e-5: the router's moderate-accuracy IPM runs at
+      ``eps_rel >= 1e-5``, so a tighter request must go exact.
     * ``pdhg_min_m`` -- PDHG vs raw IPM at the loose accuracy class
       (eps 1e-4) over ``pdhg_sizes``; the smallest size where PDHG wins,
       or twice the largest measured size if it never does ("beyond the
@@ -154,7 +165,6 @@ def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
     from .batch import solve_batch_two_phase
     from .config import tuned_config
     from .crossover import ipm_crossover_batch_canonical
-    from .engine_batched import _mega_kernel_fits
     from .generators import (
         device_inequality_lps,
         device_standard_form_batch,
@@ -162,7 +172,8 @@ def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
     from .ipm import IPMConfig, ipm_solve_batch_canonical
 
     kind = _device_kind()
-    table = dict(get_table(kind))
+    src = _override if _override is not None else _load_file()
+    table = dict(src.get(kind, {}))
     measured = []
 
     def _time(fn):
@@ -171,7 +182,7 @@ def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
         fn()
         return time.time() - t0
 
-    exact_wins, moderate_wins, mega_wins, seg_rows = [], [], [], []
+    exact_wins, moderate_wins, tuned_wins, seg_rows = [], [], [], []
     floor_scores = []
     for m in sizes:
         key = jax.random.PRNGKey(seed)
@@ -231,25 +242,19 @@ def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
             )
             np.asarray(rr.cost)
 
-        candidates = []
-        if _mega_kernel_fits(m, 2 * m, with_at=False):
-            candidates.append(
-                ("mega", tuned_config(m), max(256, min(512, 2 * it)))
-            )
-        candidates.append((
-            "stream",
-            tuned_config(m, refactor_every=min(128, max(32, m // 4)),
-                         unroll=2),
-            max(512, min(2048, 4 * it)),
-        ))
+        candidates = [
+            ("tuned", tuned_config(m, refactor_every=best_seg),
+             max(256, min(512, 2 * it))),
+            ("tight",
+             tuned_config(m, refactor_every=min(128, max(32, m // 4))),
+             max(512, min(2048, 4 * it))),
+        ]
         times = {
             name: _time(lambda cfg=cfg, b=b: exact(cfg, b))
             for name, cfg, b in candidates
         }
-        t_exact = min(times.values())
-        if "mega" in times:
-            mega_wins.append((m, times["mega"] <= times["stream"]))
-        exact_wins.append((m, t_simplex <= t_exact))
+        tuned_wins.append((m, times["tuned"] <= times["tight"]))
+        exact_wins.append((m, t_simplex <= min(times.values())))
 
     def _largest_win(wins):
         best = 0
@@ -264,24 +269,23 @@ def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
     table["moderate_simplex_max_m"] = _largest_win(moderate_wins)
     measured += ["exact_simplex_max_m", "moderate_simplex_max_m"]
 
-    if mega_wins:
-        table["xover_pallas_max_m"] = _largest_win(mega_wins)
-        measured.append("xover_pallas_max_m")
+    table["cleanup_tuned_seg_max_m"] = _largest_win(tuned_wins)
+    measured.append("cleanup_tuned_seg_max_m")
 
     if floor_scores:
         floor = float(np.median(floor_scores))
         if floor > 0:
-            table["exact_eps"] = float(
+            table["exact_eps"] = max(1e-5, float(
                 10.0 ** math.floor(math.log10(max(floor / 30.0, 1e-7)))
-            )
+            ))
             measured.append("exact_eps")
 
     # measured knees for the sizes covered; rows BEYOND the measured grid
-    # (larger-m knees and the terminal row) are inherited -- replacing
-    # them with a terminal guess would mis-seg every size between
-    # max(sizes) and the old knees
+    # (larger-m knees and the terminal row) are kept from this device's
+    # existing entry -- replacing them with a terminal guess would mis-seg
+    # every size between max(sizes) and the old knees
     max_measured = max(sizes)
-    keep = [r for r in table["seg_by_m"]
+    keep = [r for r in table.get("seg_by_m", [])
             if r[0] == 0 or r[0] > max_measured]
     table["seg_by_m"] = seg_rows + (keep or [[0, seg_rows[-1][1]]])
     measured.append("seg_by_m")
@@ -318,10 +322,9 @@ def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
 
     table["_measured"] = measured
     # regime boundaries depend on the BATCH SCALE as well as (m,
-    # accuracy): a 64-lane probe on v5e measures simplex losing even at
-    # m=128 (the pivot loop's fixed costs don't amortize) while the
-    # shipped at-scale defaults were tuned at B=256-1024.  Record the
-    # probe scale so a saved entry is never mistaken for an at-scale one.
+    # accuracy): the pivot loop's fixed costs amortize over lanes.
+    # Record the probe scale so a saved entry is never mistaken for an
+    # at-scale one.
     table["_provenance"] = {
         "lanes": int(lanes), "sizes": [int(s) for s in sizes],
         "pdhg_sizes": [int(s) for s in pdhg_sizes],
@@ -330,5 +333,5 @@ def calibrate(sizes=(128, 256, 512), lanes: int = 64, seed: int = 0,
     out = {kind: table}
     if save_path:
         with open(save_path, "w") as f:
-            json.dump({"default": get_table("default"), **out}, f, indent=1)
+            json.dump(out, f, indent=1)
     return out

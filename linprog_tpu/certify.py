@@ -2,7 +2,7 @@
 
 The reference's value system is CHECKABLE optima: every solver answer in
 its suite is compared against a published textbook optimum
-(``/root/reference/tests/problems.py:18-153``).  The TPU framework's
+(the reference's ``tests/problems.py:18-153``).  This package's
 bench surface extends to sizes where no external oracle is affordable
 (a single-core HiGHS solve at m=4096 runs for hours), so the exact
 pipeline must carry its own certificate: given the basis a lane reports,
@@ -27,8 +27,8 @@ HiGHS run required.  This is strictly stronger evidence than an
 objective comparison: it checks the returned BASIS, not just the value.
 
 Everything runs on device in f32 with Dekker-split/TwoSum compensated
-arithmetic (dd: ~2^-48 effective precision), so it works on TPUs with no
-native f64 at f64-class accuracy.  Cost: one m^3 inversion + a handful
+arithmetic (dd: ~2^-48 effective precision), so it reaches f64-class
+accuracy without f64 arithmetic on the device.  Cost: one m^3 inversion + a handful
 of O(m^2) passes per lane -- noise next to the solve it certifies.
 """
 

@@ -3,9 +3,9 @@
 The reference (agmuth/linear-programming) has no config system: all knobs are
 constructor/``solve`` kwargs and hardcoded ``np.isclose`` tolerances at 8 call
 sites (reference ``linprog/primal_solvers.py:142``, ``linprog/dual_solvers.py:54``,
-``linprog/special_solvers.py:405``).  The TPU framework replaces those with one
+``linprog/special_solvers.py:405``).  This package replaces those with one
 frozen, hashable dataclass that is passed as a *static* jit argument, so every
-tolerance / rule choice specializes the compiled kernel.
+tolerance / rule choice specializes the compiled program.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import dataclasses
 import jax.numpy as jnp
 
 # bfloat16 is deliberately NOT offered: basis factors and reduced costs
-# need f32 at minimum (see docs/DESIGN.md on MXU precision), and a bf16
+# need f32 at minimum (see docs/DESIGN.md on matmul precision), and a bf16
 # dtype option would silently produce wrong pivots.
 _DTYPES = {
     "float32": jnp.float32,
@@ -33,7 +33,7 @@ class SolverConfig:
         Optimality tolerance on reduced costs (primal) / entering eligibility.
         The reference uses ``np.isclose(min, 0)`` (atol ``1e-8``) under float32
         (``primal_solvers.py:140-142``); we default to ``1e-6`` which is robust
-        for float32 on TPU while meeting the 1e-6 relative-objective target.
+        for float32 while meeting the 1e-6 relative-objective target.
     feas_tol:
         Feasibility tolerance on basic variable values (dual optimality check,
         basis-feasibility gates).
@@ -52,13 +52,12 @@ class SolverConfig:
         ``primal_solvers.py:135-138``).
         ``"dantzig"`` -- most-negative reduced cost (faster in practice).
         ``"devex"``   -- reference-weight pricing (Forrest-Goldfarb),
-        implemented on the whole-segment Pallas mega-kernel AND the XLA
-        batched primal driver; paths without an implementation (streaming
-        kernel, single-instance engine, dual solves) raise ``ValueError``
-        at dispatch -- the knob never silently serves a different rule.
-        Measured on the structured suite devex ~= dantzig in pivot counts
-        (see tests/test_structured_suite.py), so dantzig remains the
-        tuned default.
+        implemented on the batched primal loop; paths without an
+        implementation (single-instance engine, dual solves) raise
+        ``ValueError`` at dispatch -- the knob never silently serves a
+        different rule.  On the structured suite devex ~= dantzig in pivot
+        counts (see tests/test_structured_suite.py), so dantzig remains
+        the tuned default.
     refactor_every:
         If > 0 and ``update == "eta"``, recompute ``inv(A[:, basis])`` from
         scratch every ``refactor_every`` pivots to bound eta-product drift.
@@ -88,50 +87,8 @@ class SolverConfig:
     # Dantzig provably cycles on degenerate LPs (Beale 1955; pinned by
     # tests/test_degeneracy.py) -- without this, one degenerate lane burns
     # the whole batch's iteration budget.  0 disables (exact legacy paths).
-    # Applied in the mega-kernels and the batched XLA primal path.
+    # Applied in the batched primal loop (engine_batched.run_batched).
     stall_limit: int = 24
-    # Split-bf16 pricing (mega-kernel, primal + dantzig/bland + resident
-    # A^T only): the O(mn) pricing matmul runs as THREE single-pass bf16
-    # products on pre-split (hi, lo) copies of A instead of one 6-pass
-    # HIGHEST f32 matmul -- ~4x less VMEM traffic through the dominant op
-    # at m >= 512.  Reduced-cost error grows from ~eps to ~2^-16 relative,
-    # so pivot choices can differ and termination can land a few pivots
-    # short; pair with polish_pivots (dd repricing fixes the vertex) --
-    # measured-equivalent final accuracy.  The direction/eta math stays
-    # full f32 (basis factors are never computed from split operands).
-    split_pricing: bool = False
-    # Partial (sectional) pricing -- streaming mega-kernel (large m) only:
-    # each iteration prices ONE n_blk-wide column section (one DMA + one
-    # small matmul) instead of streaming all of A; the kernel stays in a
-    # section while it yields entering candidates and rotates on
-    # exhaustion.  Optimality is declared after a full rotation of empty
-    # sections under an unchanged basis (a valid proof).  Classic
-    # trade-off: ~10-30% more pivots for ~S x less pricing traffic --
-    # pays off where pricing bandwidth dominates (m >= 1024).  Pivot
-    # sequences differ from full Dantzig; under stall escalation the
-    # Bland fallback is section-local (documented deviation from the
-    # global-index rule).  Ignored outside the streaming primal path.
-    partial_pricing: bool = False
-    # Mega-kernel inner-loop unrolling: run `unroll` gated iterations per
-    # while-loop trip, paying the loop condition + carry shuffle 1/unroll
-    # times per pivot.  Each sub-iteration re-checks "still running" and a
-    # lane that terminates mid-group writes nothing, so results are
-    # identical; the only waste is up to unroll-1 no-op iterations at the
-    # end of each lane's solve.  Whole-segment (VMEM-resident) primal/dual
-    # kernel and the bounded-variable kernel; ignored by the streaming path.
-    unroll: int = 1
-    # Packed-key fused selection (whole-segment primal mega-kernel):
-    # dantzig entering selection and the min-ratio leaving test each fuse
-    # value-min + argmin + eligibility into ONE i32 lane reduction by
-    # embedding the index in the low mantissa bits of the monotonically
-    # int-mapped float key.  Tie-breaking among candidates within
-    # ~2^-(23-log2(n)) RELATIVE of the winner can differ from exact
-    # first-index Dantzig/min-ratio, so pivot paths are not bit-reproducible
-    # vs the oracle -- but reduced costs, ratio values, and the optimality
-    # test stay exact, so termination and statuses are unaffected (unlike
-    # the split-pricing experiment, whose pricing values themselves were
-    # noisy).  Off by default for oracle-exact pivot paths.
-    packed_select: bool = False
     # Terminal double-word polish (linprog_tpu.refine): after the batched
     # two-phase solve, reduced costs are recomputed in split-float/Kahan
     # arithmetic at the terminal basis and up to `polish_pivots` dd-guided
@@ -142,18 +99,16 @@ class SolverConfig:
     # Compact the between-segment/chunk exact refactorization to the
     # still-running lanes: the batched inversion otherwise runs over ALL
     # lanes every segment even when only a tail of the batch is still
-    # active (measured ~40% of e2e wall at m=256/seg=192).  Running lanes
-    # are stably sorted to the front and only the smallest power-of-two
-    # prefix covering them is inverted (lax.switch) -- bit-exact per
-    # running lane, so pivot paths are unchanged.
+    # active.  Running lanes are stably sorted to the front and only the
+    # smallest power-of-two prefix covering them is inverted (lax.switch)
+    # -- bit-exact per running lane, so pivot paths are unchanged.
     compact_refactor: bool = True
     dtype: str = "float32"
-    kernels: str = "xla"  # "xla" | "pallas" -- batched hot-op implementation
-    # refactorization method between segments/chunks:
-    # "inv" -- exact batched inversion (O(m^3) LU; slow on TPU)
-    # "ns"  -- two Newton-Schulz refinement steps (4 batched matmuls;
-    #          quadratic residual reduction, ~100x faster, needs the eta
-    #          factors to still be a reasonable approximation)
+    # refactorization method between chunks of the batched primal loop:
+    # "inv" -- exact batched inversion (O(m^3) LU), the only method.
+    # "ns" (Newton-Schulz refinement) ran only in the removed
+    # hand-written kernel drivers and is rejected; the field goes with
+    # ROADMAP Queue 3.
     refactor_method: str = "inv"
     # Ruiz equilibration of (c, A, b) before solving (batched pipelines);
     # results are reported in the original scaling.
@@ -166,12 +121,12 @@ class SolverConfig:
             raise ValueError(f"unknown pricing rule: {self.pricing!r}")
         if self.dtype not in _DTYPES:
             raise ValueError(f"unknown dtype: {self.dtype!r}")
-        if self.kernels not in ("xla", "pallas"):
-            raise ValueError(f"unknown kernels impl: {self.kernels!r}")
-        if self.refactor_method not in ("inv", "ns"):
+        if self.refactor_method == "ns":
+            raise ValueError(
+                "refactor_method='ns' is no longer supported: it ran only "
+                "in the removed hand-written kernel drivers; use 'inv'")
+        if self.refactor_method != "inv":
             raise ValueError(f"unknown refactor method: {self.refactor_method!r}")
-        if self.unroll < 1:
-            raise ValueError(f"unroll must be >= 1, got {self.unroll}")
 
     @property
     def jnp_dtype(self):
@@ -183,33 +138,29 @@ class SolverConfig:
 
 DEFAULT_CONFIG = SolverConfig()
 
-# The measured-fastest TPU configuration (v5e, 2026-08): Pallas
-# mega-kernels, dantzig pricing with stalled-lane Bland escalation,
-# compact refactorization every 512 pivots, 4-way inner-loop unrolling,
-# packed-key fused selection, and the double-word terminal polish.
-# DEFAULT_CONFIG keeps the reference-parity semantics (bland, XLA ops,
-# no refactorization) for oracle-exact pivot paths; use FAST_CONFIG (or
-# :func:`tuned_config`) for throughput.
+# The throughput configuration: dantzig pricing with stalled-lane Bland
+# escalation, compact refactorization every segment (length per size from
+# the calibration table, see :func:`tuned_config`) and the double-word
+# terminal polish.  DEFAULT_CONFIG keeps the reference-parity semantics
+# (bland, no refactorization) for oracle-exact pivot paths; use
+# FAST_CONFIG (or :func:`tuned_config`) for throughput.
 FAST_CONFIG = SolverConfig(
     pricing="dantzig",
     refactor_every=512,
-    kernels="pallas",
     polish_pivots=8,
-    unroll=4,
-    packed_select=True,
 )
+
 
 def tuned_config(m: int, **overrides) -> SolverConfig:
     """:data:`FAST_CONFIG` with the segment length tuned for size ``m``.
 
-    The refactor-segment knees are per-chip measurements read from the
-    calibration table (``linprog_tpu/data/calibration.json``; v5e default:
-    seg 512 up to m~=384, 768 to ~768, 1024 to ~1536, 2048 beyond --
-    longer solves want longer segments once compact refactorization makes
-    the between-segment inversion cost proportional to still-running
-    lanes).  ``overrides`` are applied last.
+    The refactor-segment knees are per-device measurements read from the
+    calibration table (``linprog_tpu/data/calibration.json``, key
+    ``seg_by_m``).  ``overrides`` are applied last.
     """
     from .calibration import seg_for_m
 
-    seg = overrides.pop("refactor_every", seg_for_m(m))
+    seg = overrides.pop("refactor_every", None)
+    if seg is None:
+        seg = seg_for_m(m)
     return FAST_CONFIG.replace(refactor_every=seg, **overrides)

@@ -334,12 +334,11 @@ def ipm_crossover_batch_canonical(c, G, h, ipm_cfg=None,
     space: ``"tapia"`` (default) ranks by the Tapia indicator ``x/s``
     (primal over dual slack), ``"magnitude"`` by ``[x; h - Gx]`` (primal
     values), ``"slack"`` is magnitude with slack columns up-weighted.
-    Measured v5e with the dual-then-primal repair (round 4): tapia cuts
-    repair pivots ~7% at m=256/512 and 11x at m=1024 (60 vs 27 LPs/s,
-    32/32 vs 26/32 crossed) -- the sharper support separation matters
-    exactly where the f32 KKT floor degrades the magnitude ranking;
-    "slack" measured far worse everywhere (4/32 crossed at m=1024) and is
-    kept only as an experiment arm.
+    With the dual-then-primal repair, tapia needed fewer repair pivots
+    than magnitude and crossed 32/32 vs 26/32 lanes at m=1024 -- the
+    sharper support separation matters exactly where the f32 KKT floor
+    degrades the magnitude ranking; "slack" crossed far fewer (4/32 at
+    m=1024) and is kept only as an experiment arm.
     """
     from .ipm import DEFAULT_IPM_CONFIG, _ipm_canonical_jit
 
@@ -365,7 +364,12 @@ def ipm_crossover_batch_canonical(c, G, h, ipm_cfg=None,
             [jnp.maximum(x, 0.0), s_pr + 1e-3 * scale], axis=1
         )
     elif guess == "magnitude":
-        ind = None
+        # the ranking crossover_batch_canonical computes without an
+        # indicator, passed explicitly so every guess shares one compile
+        s_pr = h - jnp.einsum("bmn,bn->bm", G, x, precision=_HIGHEST)
+        ind = jnp.concatenate(
+            [jnp.maximum(x, 0.0), jnp.maximum(s_pr, 0.0)], axis=1
+        )
     else:
         raise ValueError(f"unknown basis guess {guess!r}")
     res, crossed = crossover_batch_canonical(

@@ -13,7 +13,7 @@ device mesh.
 Algorithmic parity notes (all verified against the reference):
 
 * Pricing: ``r = c - (c_B @ inv_B) @ A`` with basis entries zeroed
-  (reference ``primal_solvers.py:59-66``) -- one GEMV chain on the MXU.
+  (reference ``primal_solvers.py:59-66``) -- one GEMV chain.
 * Bland's rule: first column with ``r_j < -opt_tol``
   (reference ``np.argmax(reduced_costs < 0)``, ``primal_solvers.py:135-138``;
   ``jnp.argmax`` over booleans has identical first-True semantics).
@@ -245,7 +245,7 @@ def _masked_pivot(
     """Pivot iff ``do_pivot`` WITHOUT a full-state select.
 
     A where-select on ``inv_B`` costs an extra full pass over the O(m^2)
-    factor (measured ~4x the rank-1 update itself at B=1024, m=256).  For
+    factor, several times the rank-1 update itself.  For
     the eta path the same effect is free: zero the eta column ``u`` when
     ``do_pivot`` is false and the rank-1 update becomes a no-op.  Only the
     O(m) leaves (basis, bfs) need real selects.  The naive path keeps the
@@ -305,7 +305,7 @@ def primal_step(c, A, b, allowed, state: SimplexState, cfg: SolverConfig) -> Sim
         raise ValueError(
             "pricing='devex' is not implemented on the single-instance "
             "engine -- use pricing='dantzig'/'bland' here (devex runs on "
-            "the whole-segment mega-kernel and the XLA batched driver)"
+            "the batched primal loop, engine_batched.run_batched)"
         )
     if cfg.pricing == "dantzig":
         enter = jnp.argmin(jnp.where(eligible, r, jnp.inf))

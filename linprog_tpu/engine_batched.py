@@ -1,12 +1,11 @@
-"""Explicitly-batched simplex engine (the TPU hot path).
+"""Explicitly-batched simplex engine (the batched hot path).
 
 The single-instance engine in :mod:`linprog_tpu.engine` is written per-lane
 and lifted with ``vmap``.  That is correct and convenient, but the hot ops
 then lower to whatever fusions XLA picks.  This module is the
 performance-tuned twin: the step works on explicitly batched arrays
-(``[B, ...]``) so the two hot ops can route through the Pallas kernels in
-:mod:`linprog_tpu.ops.pallas_kernels` (``cfg.kernels == "pallas"``) or
-through tuned einsum/XLA code (``cfg.kernels == "xla"``).
+(``[B, ...]``) so pricing, the ratio test and the eta update are batched
+einsums that XLA maps onto cuBLAS-class GEMV/GEMM calls.
 
 Semantics are identical to ``vmap``-ing the per-lane engine: lanes whose
 status is terminal freeze (their updates are masked), the loop runs until
@@ -23,7 +22,6 @@ from jax import lax
 from . import status as st
 from .config import DEFAULT_CONFIG, SolverConfig
 from .engine import SimplexState
-from .ops import price_entering, ratio_eta_pivot
 
 
 def batched_in_basis_penalty(basis, n: int, allowed):
@@ -45,16 +43,14 @@ def batched_primal_step(c, A, b, allowed, state: SimplexState, cfg: SolverConfig
                         maxiters, bland=None, gamma=None):
     """One batched primal iteration over all lanes (finished lanes frozen).
 
-    ``bland`` (optional bool[B], XLA path only): lanes flagged True use
-    Bland's first-eligible entering rule regardless of ``cfg.pricing`` --
-    the per-lane stall escalation of :func:`run_batched`.
+    ``bland`` (optional bool[B]): lanes flagged True use Bland's
+    first-eligible entering rule regardless of ``cfg.pricing`` -- the
+    per-lane stall escalation of :func:`run_batched`.
 
-    ``gamma`` (optional f32[B, n], XLA path only): devex reference weights.
-    When ``cfg.pricing == "devex"`` it MUST be supplied (the
-    :func:`run_batched` driver threads it through its loop carry) and the
-    return value becomes ``(state, gamma_updated)`` -- the same
-    reference-framework rule the whole-segment mega-kernel implements
-    (``ops/solve_kernel.py``): entering maximizes ``r^2 / gamma``, weights
+    ``gamma`` (optional f32[B, n]): devex reference weights.  When
+    ``cfg.pricing == "devex"`` it MUST be supplied (:func:`run_batched`
+    threads it through its loop carry) and the return value becomes
+    ``(state, gamma_updated)``: entering maximizes ``r^2 / gamma``, weights
     update from the pivot row, and the leaving variable re-enters the
     nonbasic pool at ``max(gamma_q / alpha_q^2, 1)``.
     """
@@ -64,100 +60,79 @@ def batched_primal_step(c, A, b, allowed, state: SimplexState, cfg: SolverConfig
     cB = jnp.take_along_axis(c, state.basis, axis=1)
     penalty = batched_in_basis_penalty(state.basis, n, allowed)
 
-    if cfg.pricing == "devex" and (cfg.kernels == "pallas" or gamma is None):
+    if cfg.pricing == "devex" and gamma is None:
         raise ValueError(
-            "pricing='devex' on the batched step requires the XLA driver "
-            "(run_batched threads the weight vector); the per-step Pallas "
-            "helpers do not implement reference-weight devex -- use the "
-            "whole-segment mega-kernel (kernels='pallas' via run_batched) "
-            "or pricing='dantzig'"
+            "pricing='devex' on the batched step needs the devex weights "
+            "(run_batched threads them through its loop carry)"
         )
-    if cfg.kernels == "pallas":
-        enter, elig = price_entering(
-            cB, state.inv_B, A, c, penalty,
-            dantzig=(cfg.pricing == "dantzig"), opt_tol=cfg.opt_tol,
-        )
-        eligible = elig > 0
-        acol = _gather_cols(A, enter)
-        go = jnp.where(running & eligible, 1, 0).astype(jnp.int32)
-        inv_B, bfs, leave, unb = ratio_eta_pivot(
-            state.inv_B, state.bfs, acol, go[:, None], pivot_tol=cfg.pivot_tol
-        )
-        unbounded = unb > 0
-        # an unbounded lane got leave=0 from the kernel and must NOT have its
-        # basis overwritten (inv_B/bfs were left unchanged by the kernel);
-        # mirrors the XLA branch's `go & any_pos` masking.
-        pivoted = (go > 0) & ~unbounded
+    y = jnp.einsum("bm,bmk->bk", cB, state.inv_B)
+    r = c - jnp.einsum("bm,bmn->bn", y, A) + penalty
+    # per-lane scaled optimality tolerance (reference np.isclose rtol
+    # semantics on badly scaled costs; see engine.primal_step)
+    tol = (cfg.opt_tol * jnp.maximum(1.0, jnp.max(jnp.abs(c), axis=1)))[
+        :, None
+    ]
+    if cfg.pricing == "devex":
+        # reference-weight devex: maximize r^2 / gamma over eligible
+        neg = r < -tol
+        score = jnp.where(neg, (r * r) / gamma, -jnp.inf)
+        enter = jnp.argmax(score, axis=1)
+        eligible = jnp.take_along_axis(neg, enter[:, None], axis=1)[:, 0]
+        if bland is not None:  # stalled lanes: first eligible column
+            enter_b = jnp.argmax(neg, axis=1)
+            enter = jnp.where(bland, enter_b, enter)
+    elif cfg.pricing == "dantzig":
+        enter = jnp.argmin(r, axis=1)
+        eligible = (
+            jnp.take_along_axis(r, enter[:, None], axis=1) < -tol
+        )[:, 0]
+        if bland is not None:  # stalled lanes: first eligible column
+            enter_b = jnp.argmax(r < -tol, axis=1)
+            enter = jnp.where(bland, enter_b, enter)
     else:
-        y = jnp.einsum("bm,bmk->bk", cB, state.inv_B)
-        r = c - jnp.einsum("bm,bmn->bn", y, A) + penalty
-        # per-lane scaled optimality tolerance (reference np.isclose rtol
-        # semantics on badly scaled costs; see engine.primal_step)
-        tol = (cfg.opt_tol * jnp.maximum(1.0, jnp.max(jnp.abs(c), axis=1)))[
-            :, None
-        ]
-        if cfg.pricing == "devex":
-            # reference-weight devex: maximize r^2 / gamma over eligible
-            neg = r < -tol
-            score = jnp.where(neg, (r * r) / gamma, -jnp.inf)
-            enter = jnp.argmax(score, axis=1)
-            eligible = jnp.take_along_axis(neg, enter[:, None], axis=1)[:, 0]
-            if bland is not None:  # stalled lanes: first eligible column
-                enter_b = jnp.argmax(neg, axis=1)
-                enter = jnp.where(bland, enter_b, enter)
-        elif cfg.pricing == "dantzig":
-            enter = jnp.argmin(r, axis=1)
-            eligible = (
-                jnp.take_along_axis(r, enter[:, None], axis=1) < -tol
-            )[:, 0]
-            if bland is not None:  # stalled lanes: first eligible column
-                enter_b = jnp.argmax(r < -tol, axis=1)
-                enter = jnp.where(bland, enter_b, enter)
-        else:
-            neg = r < -tol
-            enter = jnp.argmax(neg, axis=1)
-            eligible = jnp.take_along_axis(neg, enter[:, None], axis=1)[:, 0]
-        acol = _gather_cols(A, enter)
-        d = jnp.einsum("bmk,bk->bm", state.inv_B, acol)
-        pos = d > cfg.pivot_tol
-        any_pos = jnp.any(pos, axis=1)
-        # clamp refactorization noise (see engine.primal_step)
-        bfs_nn = jnp.maximum(state.bfs, 0.0)
-        theta = jnp.where(pos, bfs_nn / jnp.where(pos, d, 1.0), jnp.inf)
-        leave = jnp.argmin(theta, axis=1)
-        go = running & eligible & any_pos
-        d_l = jnp.take_along_axis(d, leave[:, None], axis=1)[:, 0]
-        safe = jnp.where(d_l == 0, 1.0, d_l)
-        u = -d / safe[:, None]
-        u = u.at[jnp.arange(B), leave].set(1.0 / safe - 1.0)
-        u = jnp.where(go[:, None], u, 0.0)
-        row = jnp.take_along_axis(state.inv_B, leave[:, None, None], axis=1)
-        inv_B = state.inv_B + u[:, :, None] * row
-        bfs_l = jnp.take_along_axis(state.bfs, leave[:, None], axis=1)
-        bfs = state.bfs + u * bfs_l[:, 0][:, None]
-        unbounded = eligible & ~any_pos
-        pivoted = go
-        if cfg.pricing == "devex" and gamma is not None:
-            # same rule as the mega-kernel: alpha = pivot row of the OLD
-            # tableau (one extra O(mn) row GEMV), gamma_j <- max(gamma_j,
-            # (alpha_j/alpha_q)^2 gamma_q); the leaving variable re-enters
-            # the nonbasic pool at max(gamma_q / alpha_q^2, 1)
-            w = jnp.einsum("bm,bmn->bn", row[:, 0, :], A)
-            ratio2 = (w / safe[:, None]) ** 2
-            gamma_q = jnp.maximum(
-                jnp.take_along_axis(gamma, enter[:, None], axis=1)[:, 0], 1.0
-            )
-            gamma_new = jnp.maximum(gamma, ratio2 * gamma_q[:, None])
-            leaving_col = jnp.take_along_axis(
-                state.basis, leave[:, None], axis=1
-            )[:, 0]
-            g_leave = jnp.maximum(gamma_q / (safe * safe), 1.0)
-            gamma_new = gamma_new.at[jnp.arange(B), leaving_col].set(g_leave)
-            gamma_new = jnp.minimum(gamma_new, 1e12)
-            gamma = jnp.where(pivoted[:, None], gamma_new, gamma)
+        neg = r < -tol
+        enter = jnp.argmax(neg, axis=1)
+        eligible = jnp.take_along_axis(neg, enter[:, None], axis=1)[:, 0]
+    acol = _gather_cols(A, enter)
+    d = jnp.einsum("bmk,bk->bm", state.inv_B, acol)
+    pos = d > cfg.pivot_tol
+    any_pos = jnp.any(pos, axis=1)
+    # clamp refactorization noise (see engine.primal_step)
+    bfs_nn = jnp.maximum(state.bfs, 0.0)
+    theta = jnp.where(pos, bfs_nn / jnp.where(pos, d, 1.0), jnp.inf)
+    leave = jnp.argmin(theta, axis=1)
+    go = running & eligible & any_pos
+    d_l = jnp.take_along_axis(d, leave[:, None], axis=1)[:, 0]
+    safe = jnp.where(d_l == 0, 1.0, d_l)
+    u = -d / safe[:, None]
+    u = u.at[jnp.arange(B), leave].set(1.0 / safe - 1.0)
+    u = jnp.where(go[:, None], u, 0.0)
+    row = jnp.take_along_axis(state.inv_B, leave[:, None, None], axis=1)
+    inv_B = state.inv_B + u[:, :, None] * row
+    bfs_l = jnp.take_along_axis(state.bfs, leave[:, None], axis=1)
+    bfs = state.bfs + u * bfs_l[:, 0][:, None]
+    unbounded = eligible & ~any_pos
+    if cfg.pricing == "devex":
+        # alpha = pivot row of the OLD tableau (one extra O(mn) row
+        # GEMV), gamma_j <- max(gamma_j, (alpha_j/alpha_q)^2 gamma_q); the
+        # leaving variable re-enters the nonbasic pool at
+        # max(gamma_q / alpha_q^2, 1)
+        w = jnp.einsum("bm,bmn->bn", row[:, 0, :], A)
+        ratio2 = (w / safe[:, None]) ** 2
+        gamma_q = jnp.maximum(
+            jnp.take_along_axis(gamma, enter[:, None], axis=1)[:, 0], 1.0
+        )
+        gamma_new = jnp.maximum(gamma, ratio2 * gamma_q[:, None])
+        leaving_col = jnp.take_along_axis(
+            state.basis, leave[:, None], axis=1
+        )[:, 0]
+        g_leave = jnp.maximum(gamma_q / (safe * safe), 1.0)
+        gamma_new = gamma_new.at[jnp.arange(B), leaving_col].set(g_leave)
+        gamma_new = jnp.minimum(gamma_new, 1e12)
+        gamma = jnp.where(go[:, None], gamma_new, gamma)
 
     basis = jnp.where(
-        pivoted[:, None],
+        go[:, None],
         state.basis.at[jnp.arange(B), leave].set(enter.astype(jnp.int32)),
         state.basis,
     )
@@ -188,10 +163,9 @@ def compact_refactorize(A, b, basis, run):
     engine: the problem rhs; bounded engine: ``b - A x_N``).
 
     The between-segment batched inversion runs over ALL ``B`` lanes even
-    when only a handful are still active -- measured at ~40% of e2e wall
-    at m=256/seg=192, and the dominant share of that is spent re-inverting
-    lanes that already terminated (the lane-iteration distribution has a
-    long tail, so late segments have few runners).  This sorts running
+    when only a handful are still active, so most of it re-inverts lanes
+    that already terminated (the lane-iteration distribution has a long
+    tail, so late segments have few runners).  This sorts running
     lanes to the front (stable, so per-lane results are reproducible) and
     inverts only the smallest power-of-two prefix that covers them via
     ``lax.switch``; everyone else gets zeros, which callers mask out with
@@ -255,393 +229,14 @@ def _finite_lanes(inv_B, bfs):
     )
 
 
-def newton_schulz_refine(A, b, basis, inv_B, steps: int = 2,
-                         resid_tol: float = 1e-3):
-    """Refine drifted eta factors toward ``inv(A[:, basis])``, guarded.
-
-    Newton-Schulz iterations ``X <- X (2I - B X)`` square the residual
-    ``||I - B X||`` each time: typical eta-product drift after 64-128
-    rank-1 updates drops below float32 noise at the cost of 2 batched
-    matmuls per step -- ~100x cheaper than batched LU inversion on TPU.
-    NS only converges inside ``||I - B X|| < 1``, and simplex passes
-    through ill-conditioned bases where the eta product drifts past that
-    basin, so the result is residual-checked: lanes still above
-    ``resid_tol`` fall back to exact inversion (computed only when some
-    lane needs it -- a real scalar branch, not a select).
-    Returns ``(inv_B_refined, bfs_refined)``.
-    """
-    B_mat = jnp.take_along_axis(A, basis[:, None, :], axis=2)
-    m = inv_B.shape[-1]
-    eye = jnp.eye(m, dtype=inv_B.dtype)
-    X = inv_B
-    for _ in range(steps):
-        BX = jnp.einsum("bij,bjk->bik", B_mat, X)
-        X = jnp.einsum("bij,bjk->bik", X, 2.0 * eye[None] - BX)
-    resid = jnp.einsum("bij,bjk->bik", B_mat, X) - eye[None]
-    bad = jnp.max(jnp.abs(resid), axis=(1, 2)) > resid_tol
-
-    def with_exact(X):
-        X_exact = jnp.linalg.inv(B_mat)
-        return jnp.where(bad[:, None, None], X_exact, X)
-
-    X = lax.cond(jnp.any(bad), with_exact, lambda X: X, X)
-    bfs = jnp.einsum("bmk,bk->bm", X, b)
-    return X, bfs
-
-
-def _pallas_pack(c, A, state: SimplexState, allowed):
-    """Arrange state in the mega-kernel's layout (rows + transposed factor)."""
-    B, m, n = A.shape
-    c_row = c[:, None, :]
-    apen_row = jnp.where(allowed, 0.0, jnp.inf).astype(A.dtype)
-    apen = jnp.broadcast_to(apen_row[None, None, :], (B, 1, n))
-    pen = batched_in_basis_penalty(state.basis, n, allowed)[:, None, :]
-    invBT = jnp.swapaxes(state.inv_B, 1, 2)
-    bfs = state.bfs[:, None, :]
-    basis = state.basis[:, None, :]
-    cB = jnp.take_along_axis(c, state.basis, axis=1)[:, None, :]
-    gamma = jnp.ones((B, 1, n), A.dtype)  # devex reference weights
-    iters = state.iters[:, None, None]
-    status = state.status[:, None, None]
-    return c_row, apen, invBT, bfs, cB, basis, pen, gamma, iters, status
-
-
-def run_batched_pallas(c, A, b, state: SimplexState, allowed, maxiters,
-                       cfg: SolverConfig, mode: str = "primal") -> SimplexState:
-    """Segment-at-a-time driver for the whole-solve-in-VMEM mega-kernel.
-
-    Each outer step runs up to ``cfg.refactor_every`` complete simplex
-    iterations per lane inside one Pallas kernel (zero HBM traffic in the
-    inner loop), then refactorizes still-running lanes in XLA to bound
-    eta-product drift.
-    """
-    from .ops.solve_kernel import solve_segment
-
-    B, m, n = A.shape
-    seg_len = cfg.refactor_every if cfg.refactor_every > 0 else (1 << 30)
-    maxiters = jnp.asarray(maxiters, jnp.int32)
-    maxit_arr = jnp.reshape(maxiters, (1, 1, 1))
-    c_row, apen, invBT, bfs, cB, basis, pen, gamma, iters, status = _pallas_pack(
-        c, A, state, allowed
-    )
-
-    use_at = _mega_kernel_fits(m, n, with_at=True)
-    if use_at:
-        AT = jnp.swapaxes(A, 1, 2)
-    else:  # dummy placeholder; the kernel fetches columns via matmul
-        AT = jnp.zeros((B, 1, 128), A.dtype)
-    pricing_code = {"bland": 0, "dantzig": 1, "devex": 2}[cfg.pricing]
-    # split-bf16 pricing: only the primal bland/dantzig resident-A^T path
-    # has the exact column/pivot-row fetches it needs
-    split = (
-        cfg.split_pricing and mode == "primal" and pricing_code <= 1
-        and use_at
-    )
-    dummy = jnp.zeros((B, 1, 128), A.dtype)
-    if split:
-        Ah = A.astype(jnp.bfloat16)
-        Al = (A - Ah.astype(A.dtype)).astype(jnp.bfloat16)
-        Ahl = jnp.concatenate([Ah, Al], axis=2)  # [B, m, 2n]
-        A_in = dummy  # pricing reads [Ah|Al]; the column comes from AT
-    else:
-        Ahl = dummy.astype(jnp.bfloat16)
-        A_in = A
-
-    def seg(args):
-        invBT, bfs, cB, basis, pen, gamma, iters, status = args
-        return solve_segment(
-            A_in, AT, Ahl, c_row, apen, maxit_arr, invBT, bfs, cB,
-            basis, pen, gamma, iters, status,
-            seg_len=seg_len, pricing=pricing_code,
-            opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
-            dual=(mode == "dual"), feas_tol=cfg.feas_tol, use_at=use_at,
-            stall_limit=cfg.stall_limit, split=split, unroll=cfg.unroll,
-            packed=cfg.packed_select,
-        )
-
-    carry = (invBT, bfs, cB, basis, pen, gamma, iters, status)
-
-    def any_running(carry):
-        iters, status = carry[-2], carry[-1]
-        return jnp.any((status[:, 0, 0] == st.RUNNING) & (iters[:, 0, 0] < maxiters))
-
-    def exact_refactor(carry):
-        invBT, bfs, cB, basis, pen, gamma, iters, status = carry
-        inv = jnp.linalg.inv(
-            jnp.take_along_axis(A, basis[:, 0, :][:, None, :], axis=2)
-        )
-        fresh_bfs = jnp.einsum("bmk,bk->bm", inv, b)[:, None, :]
-        return (jnp.swapaxes(inv, 1, 2), fresh_bfs, cB, basis, pen,
-                jnp.ones_like(gamma), iters, status)
-
-    def inner(carry):
-        """Segments until every lane is terminal, refactoring in between."""
-
-        def body(carry):
-            carry = seg(carry)
-            invBT, bfs, cB, basis, pen, gamma, iters, status = carry
-            flat_basis = basis[:, 0, :]
-            run = status[:, 0, 0] == st.RUNNING
-            if cfg.refactor_method == "ns":
-                # loose basin threshold: only lanes whose eta product left
-                # the NS convergence region fall back to exact inversion;
-                # final accuracy comes from the polish loop below.
-                inv, fresh_bfs = newton_schulz_refine(
-                    A, b, flat_basis, jnp.swapaxes(invBT, 1, 2),
-                    resid_tol=1e-1,
-                )
-            elif cfg.compact_refactor:
-                inv, fresh_bfs = compact_refactorize(A, b, flat_basis, run)
-            else:
-                inv = jnp.linalg.inv(
-                    jnp.take_along_axis(A, flat_basis[:, None, :], axis=2)
-                )
-                fresh_bfs = jnp.einsum("bmk,bk->bm", inv, b)
-            ok = _finite_lanes(inv, fresh_bfs)
-            fresh_bfs = fresh_bfs[:, None, :]
-            status = jnp.where(
-                (run & ~ok)[:, None, None], st.NUMERICAL_ERROR, status
-            ).astype(jnp.int32)
-            take = (run & ok)[:, None, None]
-            invBT = jnp.where(take, jnp.swapaxes(inv, 1, 2), invBT)
-            bfs = jnp.where(take, fresh_bfs, bfs)
-            # devex weights reset to the fresh reference framework
-            return (invBT, bfs, cB, basis, pen, jnp.ones_like(gamma),
-                    iters, status)
-
-        return lax.while_loop(any_running, body, carry)
-
-    if cfg.refactor_every > 0:
-        carry = inner(carry)
-        if cfg.refactor_method == "ns":
-            # polish: exact factors, re-open finished lanes, resume; a lane
-            # that was truly terminal re-terminates in one in-VMEM iteration.
-            # Repeat until no lane moves more than that single check step.
-            # (Not worth it for the exact-inv method: measured float32
-            # objective gaps ~5e-4 at m=256 are the f32 pricing accuracy
-            # floor -- polish re-confirms the same vertex at +40% runtime.)
-            def polish_cond(pc):
-                carry, rnd, clean = pc
-                return (rnd < 3) & jnp.logical_not(clean)
-
-            def polish_body(pc):
-                carry, rnd, _ = pc
-                carry = exact_refactor(carry)
-                invBT, bfs, cB, basis, pen, gamma, iters, status = carry
-                snapshot = iters
-                reopen = (status[:, 0, 0] == st.OPTIMAL) | (
-                    status[:, 0, 0] == st.PRIMAL_UNBOUNDED
-                )
-                status = jnp.where(
-                    reopen[:, None, None], st.RUNNING, status
-                ).astype(jnp.int32)
-                carry = inner(
-                    (invBT, bfs, cB, basis, pen, gamma, iters, status)
-                )
-                clean = jnp.all(carry[-2] - snapshot <= 1)
-                return carry, rnd + 1, clean
-
-            carry, _, _ = lax.while_loop(
-                polish_cond, polish_body,
-                (carry, jnp.zeros((), jnp.int32), jnp.zeros((), jnp.bool_)),
-            )
-    else:
-        carry = seg(carry)
-
-    invBT, bfs, cB, basis, pen, gamma, iters, status = carry
-    return SimplexState(
-        basis=basis[:, 0, :],
-        inv_B=jnp.swapaxes(invBT, 1, 2),
-        bfs=bfs[:, 0, :],
-        iters=iters[:, 0, 0],
-        status=status[:, 0, 0],
-    )
-
-
-def _stream_variant(m: int, n: int, itemsize: int = 4,
-                    vmem_budget: int = 24 * 1024 * 1024):
-    """Pick the streaming mega-kernel regime for (m, n), or None.
-
-    The streaming kernel holds its big operands in manually-managed scratch
-    (no Mosaic grid double-buffering): invBT copy + eta-update temp (~m*m)
-    + either a resident A slab or two (m, n_blk) DMA blocks + O(m+n) rows.
-    Mosaic's scoped allocation still runs ~4x this operand count (measured
-    21.2 MB vs a 5.3 MB estimate at m=512 two-phase shapes), so the budget
-    is the kernels' 100 MB ``vmem_limit_bytes`` divided by 4.
-    Returns ``("resident" | "stream", n_blk)``.
-    """
-    rows = 12 * (m + n) * itemsize
-    resident = (m * n + 2 * m * m) * itemsize + rows
-    if resident <= vmem_budget:
-        return ("resident", 0)
-    # streaming mode holds only the (2, n_blk, m) DMA slots + the factor
-    # (+ its eta-update temp); everything is manually-managed scratch with
-    # no grid double-buffering, so the budget is the 100 MB scoped cap
-    # with ~2x headroom rather than the resident-mode conservative 24 MB.
-    # Validated on hardware at m=2048 (benchmarks/stream_m2048.py).
-    for n_blk in (512, 256, 128):
-        if n % n_blk:
-            continue
-        stream = (2 * m * n_blk + 2 * m * m) * itemsize + rows
-        if stream <= 48 * 1024 * 1024:
-            return ("stream", n_blk)
-    # blocked-factor regime (m up to ~4096): the factor is consumed in
-    # (RB, m) ref slices so only ONE m*m scratch lives in VMEM, plus the
-    # DMA slots and an (RB, m) block temp; primal-only (the driver sends
-    # dual mode to the vmapped engine)
-    for n_blk in (256, 128):
-        if n % n_blk:
-            continue
-        need = (m * m + 2 * m * n_blk + 2 * 512 * m) * itemsize + rows
-        if need <= 92 * 1024 * 1024:
-            return ("stream_blocked", n_blk)
-    return None
-
-
-def run_batched_stream(c, A, b, state: SimplexState, allowed, maxiters,
-                       cfg: SolverConfig, mode: str = "primal",
-                       variant: str = "resident",
-                       n_blk: int = 256) -> SimplexState:
-    """Segment driver for the large-m streaming mega-kernel.
-
-    Same contract as :func:`run_batched_pallas` (segments of up to
-    ``cfg.refactor_every`` in-VMEM iterations, exact refactorization of
-    still-running lanes in XLA between segments) for m past the
-    whole-in-VMEM kernel's limit.  Devex pricing falls back to dantzig
-    selection (the weight update would need a second pass over A).
-    """
-    from .ops.stream_kernel import solve_segment_stream
-
-    B, m, n = A.shape
-    seg_len = cfg.refactor_every if cfg.refactor_every > 0 else (1 << 30)
-    maxiters = jnp.asarray(maxiters, jnp.int32)
-    maxit_arr = jnp.reshape(maxiters, (1, 1, 1))
-    c_row, apen, invBT, bfs, cB, basis, pen, _, iters, status = _pallas_pack(
-        c, A, state, allowed
-    )
-    # the kernel works exclusively from A^T (pricing/dual rows as dim-1
-    # contractions; the entering column as a free sublane slice)
-    AT = jnp.swapaxes(A, 1, 2)
-    if cfg.pricing == "devex":
-        raise ValueError(
-            "pricing='devex' is not implemented on the streaming (large-m) "
-            "kernel -- the weight update would need a second pass over A; "
-            "use pricing='dantzig' here (devex runs on the whole-segment "
-            "mega-kernel and the XLA batched driver)"
-        )
-    pricing_code = {"bland": 0, "dantzig": 1}[cfg.pricing]
-    # sectional pricing: primal only (see stream_kernel docstring)
-    partial = bool(cfg.partial_pricing and mode == "primal")
-    if partial and n_blk == 0:
-        n_blk = 256 if n % 256 == 0 else 0
-        partial = n_blk > 0
-
-    factor_blocked = variant == "stream_blocked"
-
-    def seg(carry):
-        invBT, bfs, cB, basis, pen, iters, status = carry
-        return solve_segment_stream(
-            AT, c_row, apen, maxit_arr, invBT, bfs, cB, basis, pen,
-            iters, status,
-            seg_len=seg_len, pricing=pricing_code, opt_tol=cfg.opt_tol,
-            pivot_tol=cfg.pivot_tol, dual=(mode == "dual"),
-            feas_tol=cfg.feas_tol, a_resident=(variant == "resident"),
-            n_blk=n_blk, stall_limit=cfg.stall_limit,
-            partial=partial and not factor_blocked,
-            packed=cfg.packed_select, factor_blocked=factor_blocked,
-        )
-
-    def any_running(carry):
-        iters, status = carry[-2], carry[-1]
-        return jnp.any(
-            (status[:, 0, 0] == st.RUNNING) & (iters[:, 0, 0] < maxiters)
-        )
-
-    def body(carry):
-        carry = seg(carry)
-        invBT, bfs, cB, basis, pen, iters, status = carry
-        flat_basis = basis[:, 0, :]
-        run = status[:, 0, 0] == st.RUNNING
-        if cfg.refactor_method == "ns":
-            inv, fresh_bfs = newton_schulz_refine(
-                A, b, flat_basis, jnp.swapaxes(invBT, 1, 2), resid_tol=1e-1
-            )
-        elif cfg.compact_refactor:
-            inv, fresh_bfs = compact_refactorize(A, b, flat_basis, run)
-        else:
-            inv = jnp.linalg.inv(
-                jnp.take_along_axis(A, flat_basis[:, None, :], axis=2)
-            )
-            fresh_bfs = jnp.einsum("bmk,bk->bm", inv, b)
-        ok = _finite_lanes(inv, fresh_bfs)
-        status = jnp.where(
-            (run & ~ok)[:, None, None], st.NUMERICAL_ERROR, status
-        ).astype(jnp.int32)
-        take = (run & ok)[:, None, None]
-        invBT = jnp.where(take, jnp.swapaxes(inv, 1, 2), invBT)
-        bfs = jnp.where(take, fresh_bfs[:, None, :], bfs)
-        return (invBT, bfs, cB, basis, pen, iters, status)
-
-    carry = (invBT, bfs, cB, basis, pen, iters, status)
-    if cfg.refactor_every > 0:
-        carry = lax.while_loop(any_running, body, carry)
-    else:
-        carry = seg(carry)
-    invBT, bfs, cB, basis, pen, iters, status = carry
-    return SimplexState(
-        basis=basis[:, 0, :],
-        inv_B=jnp.swapaxes(invBT, 1, 2),
-        bfs=bfs[:, 0, :],
-        iters=iters[:, 0, 0],
-        status=status[:, 0, 0],
-    )
-
-
-def _mega_kernel_fits(m: int, n: int, with_at: bool, itemsize: int = 4,
-                      vmem_budget: int = 64 * 1024 * 1024) -> bool:
-    """Does one lane's working set fit the raised scoped-VMEM cap?
-
-    Calibrated against hardware: Mosaic's actual scoped allocation runs
-    ~4x the naive operand estimate (grid double-buffering of every input
-    block, separate aliased output buffers, and m x m body temporaries) --
-    measured 27.2MB at m=512 two-phase shapes vs a 7MB operand count.
-    Without A^T the entering column costs one extra O(mn) matmul per pivot
-    and the operand estimate shrinks by ~40%.  The kernels request
-    ``vmem_limit_bytes=100MB`` of the chip's 128 MiB physical VMEM (the
-    16 MB scoped cap that used to kill the kernel at m ~= 384-512 was just
-    the compiler default).  The budget is held at 64 MB against the
-    4x-inflated estimate because the inflation itself grows with m
-    (measured 6.3x at m=1024, where the no-AT estimate said 67 MB but
-    Mosaic asked for 107 MB); past this budget the streaming kernel's
-    manually-managed scratch is the safer and leaner choice."""
-    a_terms = (2 if with_at else 1) * m * n
-    per_lane = (a_terms + m * m + 10 * (m + n)) * itemsize
-    return 4 * per_lane <= vmem_budget
-
-
 def run_batched(c, A, b, state: SimplexState, allowed, maxiters,
                 cfg: SolverConfig = DEFAULT_CONFIG,
                 mode: str = "primal") -> SimplexState:
     """Drive the batched step (primal or dual) to termination.
 
-    Pallas mega-kernel when it fits in VMEM; otherwise the explicitly
-    batched XLA path (primal) or the vmapped per-lane engine (dual).
+    Primal mode runs the explicitly batched step below; dual mode runs the
+    vmapped per-lane engine.
     """
-    if cfg.kernels == "pallas":
-        _, m, n = A.shape
-        if _mega_kernel_fits(m, n, with_at=False):
-            return run_batched_pallas(c, A, b, state, allowed, maxiters, cfg,
-                                      mode)
-        variant = _stream_variant(m, n)
-        if variant is not None and not (
-            variant[0] == "stream_blocked" and mode == "dual"
-        ):  # blocked-factor mode is primal-only
-            return run_batched_stream(
-                c, A, b, state, allowed, maxiters, cfg, mode,
-                variant=variant[0], n_blk=variant[1],
-            )
-        # working set exceeds VMEM even for the streaming kernel: XLA
-        cfg = cfg.replace(kernels="xla")
     if mode == "dual":
         from . import engine
 

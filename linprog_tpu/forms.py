@@ -1,6 +1,6 @@
 """Problem canonicalization (standard-form conversion).
 
-TPU-native rebuild of the reference's ``ProblemPreprocessingUtils``
+JAX rebuild of the reference's ``ProblemPreprocessingUtils``
 (reference ``linprog/preprocessing.py:4-69``):
 
 * ``preprocess_problem`` -- dtype cast + sign-fix so ``b >= 0``

@@ -3,7 +3,7 @@
 Counterpart of the native reader (``native/mps_reader.cpp``) -- the
 reference library has neither reader nor writer; together they let the
 framework interoperate with every standard LP toolchain, and they power the
-structured-instance acceptance suite (``benchmarks/structured_suite.py``)
+structured-instance acceptance suite (``tests/test_structured_suite.py``)
 which round-trips generated instances through the parser before solving.
 
 Accepted problem form mirrors ``SimplexSolver``/``mps_to_solver_inputs``:

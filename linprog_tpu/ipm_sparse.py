@@ -7,7 +7,7 @@ form -- one ``rows/cols[nnz]`` pattern, per-lane ``vals[B, nnz]`` -- at
 its better accuracy class (eps 1e-3 KKT by default, tens of Newton steps
 instead of tens of thousands of first-order iterations).
 
-TPU-shaped design:
+Design for batched accelerators:
 
 * **matvecs are gathers, not scatters**: the pattern is pre-padded on the
   host into row-major ``[m, k_row]`` and column-major ``[n, k_col]`` slot
@@ -190,9 +190,9 @@ class _SparseSlackOp:
         symmetric matrix is recovered with one transpose-add and a
         diagonal fix.  Two reductions are available:
 
-        * ``"segment"`` -- pre-sorted ``jax.ops.segment_sum`` (the
-          round-4 path; XLA lowers it scatter-style, measured ~84 ms of
-          the 225 ms Newton step at m=2048/1%).
+        * ``"segment"`` -- pre-sorted ``jax.ops.segment_sum`` (XLA lowers
+          it scatter-style; on the GPU the scatter uses atomics, so its
+          summation order varies from run to run).
         * ``"cumsum"`` -- COMPENSATED prefix-sum of the sorted stream,
           then read each segment as ``csum[end] - csum[start]`` with
           pattern-constant boundaries: the scatter becomes two GATHERS.
@@ -204,12 +204,10 @@ class _SparseSlackOp:
           ``eps * |prefix|`` lives in the error stream, and the boundary
           subtraction recovers it.
 
-          MEASURED NEGATIVE on v5e (round 5, m=2048 B=128 1%): the
-          isolated op runs 314 ms vs the segment-sum's 47 ms -- XLA
-          lowers the tuple-carry associative scan as multiple full
-          passes over the 105M-element stream, costing far more than
-          the scatter it replaces.  Kept for reference/CPU; "segment"
-          stays the default everywhere.
+          Slower than the segment-sum at m=2048 B=128 1%: XLA lowers
+          the tuple-carry associative scan as multiple full passes over
+          the 105M-element stream.  Kept for reference; "segment" stays
+          the default everywhere.
         """
         dg = d[:, : self.ng]
         ds = d[:, self.ng:]

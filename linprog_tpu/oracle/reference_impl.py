@@ -1,7 +1,7 @@
 """Tiny NumPy oracle: step-by-step pivot-path ground truth.
 
 An independent, host-side revised-simplex implementation (written fresh, not
-ported) used by the test suite to validate the TPU engine pivot-by-pivot:
+ported) used by the test suite to validate the JAX engine pivot-by-pivot:
 same Bland/Dantzig selection semantics, same ratio test, explicit basis
 trace.  Because it shares no code with the engine, agreement on random
 instances is strong evidence both are right.

@@ -29,7 +29,7 @@ def initialize(
 ) -> None:
     """Start the JAX distributed service (idempotent, single-process safe).
 
-    With no arguments, relies on the environment (TPU pod runtimes set the
+    With no arguments, relies on the environment (cluster runtimes set the
     coordinator automatically); on a single process this is a no-op.
 
     NB: must not touch ``jax.devices()``/``jax.process_count()`` before

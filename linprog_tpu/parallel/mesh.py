@@ -1,15 +1,16 @@
 """Device-mesh data parallelism for batched LP solving.
 
 The reference is a single-process, single-thread library (SURVEY.md section
-2.2: every parallelism row is "absent").  The TPU-native scaling axis is
-data parallelism over independent LP instances: a 1-D ``Mesh`` over axis
+2.2: every parallelism row is "absent").  The scaling axis here is data
+parallelism over independent LP instances: a 1-D ``Mesh`` over axis
 ``"batch"``, the batch dimension of every array sharded across it, and XLA
-compiling the whole two-phase solve SPMD with collectives riding ICI.
+compiling the whole two-phase solve SPMD; on GPUs its collectives (the
+batched while-loops' "any lane running" reductions) run over NCCL.
 Batch-level aggregate metrics (solved counts, total pivots) are computed
 with ``jax.lax`` reductions on device.
 
 Multi-host bring-up is ``jax.distributed.initialize()`` + the same code --
-XLA is the communication backend; there is no NCCL/MPI layer to port.
+XLA drives the collectives; there is no MPI layer to port.
 """
 
 from __future__ import annotations
@@ -59,8 +60,9 @@ def sharded_two_phase_solve(
     """Two-phase batched solve with the batch dim sharded over ``mesh``.
 
     The batch size must be divisible by the mesh size.  Every lane's solve is
-    independent, so XLA compiles this to pure per-device compute -- no
-    cross-device traffic in the hot loop; only result gathers touch ICI.
+    independent, so XLA compiles this to per-device compute; the only
+    cross-device traffic is the loops' termination reduction and result
+    gathers.
     """
     B = c.shape[0]
     n_dev = mesh.devices.size
@@ -78,7 +80,7 @@ def sharded_pdhg_batch_canonical(mesh: Mesh, c, G, h,
 
     The PDHG counterpart of :func:`sharded_two_phase_solve`: lanes are
     independent (matvecs + projections per lane), so the iteration is
-    pure per-device compute; only result gathers touch ICI.  Returns
+    pure per-device compute; only result gathers cross devices.  Returns
     ``(x, cost, status, iters)`` in the original scaling
     (:func:`linprog_tpu.pdhg.pdhg_solve_batch_canonical`).
     """
@@ -100,7 +102,8 @@ def sharded_ipm_batch_canonical(mesh: Mesh, c, G, h, cfg=None) -> BatchResult:
     :func:`sharded_pdhg_batch_canonical`: every per-iteration op (batched
     matmuls, batched Cholesky, triangular solves) carries the leading batch
     dim, so DP sharding is pure per-device compute; only the while-loop
-    termination reduction (``jnp.any`` over lane statuses) rides ICI.
+    termination reduction (``jnp.any`` over lane statuses) crosses
+    devices.
     """
     from ..ipm import DEFAULT_IPM_CONFIG, ipm_solve_batch_canonical
 

@@ -7,7 +7,7 @@ primal-dual hybrid gradient for
 
     min c'x   s.t.  A x = b,  G x <= h,  lb <= x <= ub
 
-Everything is matvecs + projections -- MXU/VPU-friendly, fully jittable,
+Everything is matvecs + projections -- accelerator-friendly, fully jittable,
 batched with one ``vmap``, sharded like any other batch.  Iteration
 (Chambolle-Pock with extrapolation, constraints stacked as K x ~ q):
 
@@ -39,9 +39,9 @@ from jax import lax
 from . import status as st
 from .results import LinProgResult
 
-# TPU MXU defaults to bf16 passes for f32 matmuls; PDHG's KKT residuals then
-# plateau above eps_rel and the iteration never terminates (observed on
-# v5e).  All matvecs force full f32 precision.
+# Reduced-precision f32 matmuls (TF32 on NVIDIA tensor cores) make PDHG's
+# KKT residuals plateau above eps_rel, so the iteration never terminates.
+# All matvecs force full f32 precision.
 _HIGHEST = jax.lax.Precision.HIGHEST
 
 
@@ -52,8 +52,8 @@ class SharedPatternSparse(NamedTuple):
     (``rows``/``cols``, int32 [nnz]) for the whole batch and per-lane
     ``vals`` [nnz] -- the natural layout for structured LP families
     (transportation, covering, ...) where every instance shares a pattern.
-    Matvecs are gather + ``segment_sum``: exact f32 accumulation, no MXU
-    precision caveat, FLOPs and memory O(nnz).  Duck-types the small part
+    Matvecs are gather + ``segment_sum``: plain f32 accumulation, no
+    reduced-precision matmul caveat, FLOPs and memory O(nnz).  Duck-types the small part
     of the dense-array interface :func:`_pdhg_core` touches (``shape``,
     ``dtype``, ``.T``, matvec via :func:`_mv`).
     """
@@ -92,8 +92,8 @@ def _mv(M, v):
         from jax.experimental import sparse as jsparse
 
         if isinstance(M, jsparse.BCOO):
-            # sparse matvec lowers to gather + segment-sum: exact f32
-            # accumulation, no MXU precision caveat
+            # sparse matvec lowers to gather + segment-sum: plain f32
+            # accumulation, no reduced-precision matmul caveat
             return M @ v
     except ImportError:  # pragma: no cover
         pass
@@ -580,8 +580,8 @@ def pdhg_solve_sparse(c, K, q, n_eq: int = 0, lb=None, ub=None,
     rows (first ``n_eq``) then ``<=`` rows; ``q`` the matching rhs.  The
     iteration is matrix-free (only ``K @ v`` / ``K.T @ v``), so memory and
     FLOPs scale with nnz -- the regime where dense simplex cannot even store
-    ``A``.  Sparse matvecs accumulate exactly in f32 (gather + segment-sum),
-    so no MXU precision caveat applies.
+    ``A``.  Sparse matvecs accumulate in plain f32 (gather + segment-sum),
+    so no reduced-precision matmul caveat applies.
     """
     m, n = K.shape
     dtype = cfg.jnp_dtype

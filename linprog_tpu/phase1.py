@@ -1,6 +1,6 @@
 """Phase I: find a basic feasible solution with artificial variables.
 
-TPU-native rebuild of the reference ``PhaseOneSimplexSolver``
+JAX rebuild of the reference ``PhaseOneSimplexSolver``
 (reference ``linprog/special_solvers.py:11-91``):
 
 * append ``m`` artificials (``A <- [A | I]``, ``c <- [0..0, 1..1]``) and run

@@ -1,6 +1,6 @@
 """Presolve: Ruiz equilibration scaling (batched, device-side).
 
-The reference has no presolve at all.  Scaling matters doubly on TPU:
+The reference has no presolve at all.  Scaling matters doubly in f32:
 float32 pricing error scales with the dynamic range of ``A``, and simplex
 iteration counts grow on badly scaled instances.  Ruiz iteration:
 

@@ -5,7 +5,7 @@ proper; the reference library has none.  This is the host-side (NumPy)
 companion to the device-side Ruiz equilibration in
 :mod:`linprog_tpu.presolve`: it shrinks ``min c'x s.t. Ax = b, Gx <= h,
 lb <= x <= ub`` BEFORE shapes are frozen for jit, which is exactly where
-dynamic-shape reductions belong in a TPU pipeline (inside jit all shapes
+dynamic-shape reductions belong in a jitted pipeline (inside jit all shapes
 are static, so row/column elimination must happen on the host).
 
 Reductions, iterated to a fixpoint:

@@ -1,6 +1,6 @@
 """Primal-dual algorithm (Papadimitriou & Steiglitz restricted-primal loop).
 
-TPU-native rebuild of the reference ``PrimalDualAlgorithm``
+JAX rebuild of the reference ``PrimalDualAlgorithm``
 (reference ``linprog/special_solvers.py:346-480``):
 
 * start from the dual-feasible ``y = 0``; if ``min(c) < 0``, expand the
@@ -10,7 +10,7 @@ TPU-native rebuild of the reference ``PrimalDualAlgorithm``
   primal; if its cost is positive, step the duals by ``theta`` along the
   restricted-dual direction; else complementary slackness holds -> optimal.
 
-Key TPU-first design change: the reference materializes the restricted
+Key design change: the reference materializes the restricted
 primal ``[A_J | I]`` by *fancy-indexing the admissible columns* -- a dynamic
 shape per outer iteration.  Here the restricted primal is always the
 full-width ``[A | I]`` with an ``allowed`` column mask handed to the engine's

@@ -9,7 +9,7 @@ change linearly; outside the interval the basis itself changes).
 
 Everything is a few dense contractions on state the engine already carries
 (``inv_B``, ``bfs``, reduced costs), so the batched versions are plain
-``vmap`` — MXU-friendly, no host round trips.
+``vmap``, no host round trips.
 
 Math (textbook, e.g. Bertsimas & Tsitsiklis ch. 5):
 

@@ -1,6 +1,6 @@
-"""Double-word (split-float) terminal polish toward 1e-6 on-TPU accuracy.
+"""Double-word (split-float) terminal polish toward 1e-6 accuracy in f32.
 
-The f32 accuracy floor on batched TPU solves (~5e-4 relative objective at
+The f32 accuracy floor on batched solves (~5e-4 relative objective at
 m=256; see docs/DESIGN.md) is NOT from solving ``B x_B = b`` at the terminal
 basis -- that is already done exactly -- it is from PRICING: the duals
 ``y = c_B inv_B`` inherit ``inv_B``'s f32 error (~eps * cond(B)), so reduced
@@ -30,7 +30,7 @@ The ladder implemented here (all on device, once per batch at the end):
 Cost: a handful of O(mn) passes after the solve -- a few percent of total
 runtime.  Capability context: the reference runs everything in plain f32
 NumPy with a 1e-2 test tolerance (``/root/reference/tests/constants.py:1``);
-this module is what lets a TPU f32 batch meet the 1e-6-relative target the
+this module is what lets an f32 batch meet the 1e-6-relative target the
 reference never attempted.
 """
 

@@ -1,37 +1,22 @@
 """Solver-family auto-router: pick simplex / IPM(+crossover) / PDHG by regime.
 
-The framework carries three solver families whose measured throughput
-crossover points (v5e-1, f32, dense random ``min c'x, Gx <= h, x >= 0``;
-see CLAUDE.md / BENCH_r02.json) are:
-
-==========  =============  ==========  ==================================
-size m=n    simplex (LPs/s)  IPM eps=1e-3  winner
-==========  =============  ==========  ==================================
-128         2083           --          simplex
-256         573-589        819-898     IPM at moderate eps; simplex exact
-512         72-77          322-331     IPM (4.2x)
-1024        7-8            105-109     IPM (13x)
-2048        0.60-0.64      24-26       IPM (40x)
-==========  =============  ==========  ==================================
-
 The reference (a single-algorithm NumPy library) leaves family choice to
-the user; production users want the framework to route.  Rules encoded
-here:
+the user; production users want the framework to route.  The regime
+boundaries are per-device measurements read from the calibration table
+(:mod:`linprog_tpu.calibration`, ``linprog_tpu/data/calibration.json``),
+never constants in code.  Rules encoded here:
 
-* **exact accuracy** (``accuracy <= 1e-5``: vertex + basis certificate
-  class): simplex two-phase up to m ~= 192 (measured m=128: simplex 2083
-  vs IPM->crossover 1596), IPM -> crossover beyond -- with the
-  inverse-factor IPM it wins from m = 256 up (measured B=1024 m=256:
-  631 LPs/s 1024/1024 crossed vs simplex 570; m=512: 229 vs 77).  Lanes
-  that fail to cross (rare) fall back to an exact two-phase simplex
-  solve, so the family's answers are always vertex-exact.
-* **moderate accuracy** (``accuracy > 1e-5``): simplex below m ~= 192
-  (tiny LPs amortize nothing), batched IPM with the crossover straggler
+* **exact accuracy** (``accuracy <= exact_eps``: vertex + basis
+  certificate class): simplex two-phase up to ``exact_simplex_max_m``,
+  IPM -> crossover beyond.  Lanes that fail to cross fall back to an
+  exact two-phase simplex solve, so the family's answers are always
+  vertex-exact.
+* **moderate accuracy**: simplex up to ``moderate_simplex_max_m`` (tiny
+  LPs amortize nothing), batched IPM with the crossover straggler
   backstop everywhere else.
-* **huge + loose** (``m >= 4096`` and ``accuracy >= 1e-4``): batched PDHG
-  (first-order; matrix-free streaming).  For SPARSE instances call
-  :func:`linprog_tpu.pdhg.pdhg_solve_batch_sparse` directly -- this router
-  takes dense batches.
+* **huge + loose** (``m >= pdhg_min_m`` and ``accuracy >= 1e-4``):
+  batched PDHG (first-order; matrix-free streaming).  For SPARSE instances
+  call :func:`solve_batch_auto_sparse` -- this router takes dense batches.
 
 Reference-parity axis: the reference has exactly one driver surface
 (``linprog/simplex.py`` ``SimplexSolver``); this is its batched,
@@ -51,45 +36,40 @@ from .results import BatchResult
 
 _FAMILIES = ("simplex", "ipm", "ipm+crossover", "pdhg")
 
-# Measured regime boundaries now live in ONE per-chip data file
-# (linprog_tpu/data/calibration.json, VERDICT r3 item 9) -- the module
-# constants of rounds 1-3 were frozen v5e-1 measurements that would
-# silently mis-route on the next chip.  linprog_tpu.calibration resolves
-# the live device's table (env/set_table injectable for tests + porting).
 from .calibration import get_table as _calibration_table
 
-def _xover_pallas_max_m() -> int:
-    """Mega-kernel fit boundary for the crossover cleanup phases."""
-    return int(_calibration_table()["xover_pallas_max_m"])
+
+def _cleanup_tuned_seg_max_m() -> int:
+    """Largest ``m`` whose crossover cleanup runs the tuned segment length
+    and a 512-pivot budget (beyond it: the tight 128-pivot cadence with a
+    2048-pivot budget).
+
+    The same key orders the repair of lanes that fail to cross in
+    :func:`solve_batch_exact`: beyond it, and below m=1536, they first
+    retry the crossover with the alternate basis guess, then fall back to
+    the two-phase simplex; up to it they go straight to the fallback.
+    """
+    return int(_calibration_table()["cleanup_tuned_seg_max_m"])
 
 
 def exact_cleanup_config(m: int, maxiters: Optional[int] = None):
-    """Measured-fastest crossover-cleanup settings: ``(SolverConfig, budget)``.
+    """Crossover-cleanup settings: ``(SolverConfig, budget)``.
 
     One shared source for the exact pipeline (:func:`solve_batch_exact`),
     the IPM straggler recovery (:func:`linprog_tpu.ipm
-    .recover_stragglers_pooled`) and the bench legs.  ``m <= 512`` runs the
-    whole-segment Pallas mega-kernel at the tuned segment length (measured
-    m=256: 643 vs 452 LPs/s over the XLA cleanup).  Larger ``m`` (round 4)
-    also routes the repair phases through the Pallas kernels -- the XLA
-    batched path ran the m=1024 cleanup at 7.75 LPs/s (VERDICT r3) and its
-    dual phase fell back to the vmapped per-lane engine -- with the tight
-    refactorization cadence the m=1024 crossover measured necessary
-    against eta drift, and a larger pivot budget for bad-guess lanes.
+    .recover_stragglers_pooled`) and the bench legs.  Up to the calibrated
+    ``cleanup_tuned_seg_max_m`` the cleanup runs the tuned segment length
+    with a 512-pivot budget.  Larger ``m`` refactorizes every 128 pivots
+    (eta drift grows with m) with a 2048-pivot budget for bad-guess lanes;
+    from m=3072 on a full m^2 refactor per 128 pivots is too dear, so the
+    segment grows to 384 with a lighter polish.
     """
-    if m <= _xover_pallas_max_m():
+    if m <= _cleanup_tuned_seg_max_m():
         return tuned_config(m), (maxiters or 512)
     if m < 3072:
-        return (
-            tuned_config(m, refactor_every=128, unroll=2),
-            (maxiters or 2048),
-        )
-    # blocked-factor stream regime: the round-4 m=4096 probe measured
-    # seg=384 / unroll=1 / polish=4 at 0.98 LPs/s, 3/4 crossed at budget
-    # 2048 (the tight-128 cadence pays a full 4096^2-factor refactor per
-    # 128 pivots and lost ~30%)
+        return tuned_config(m, refactor_every=128), (maxiters or 2048)
     return (
-        tuned_config(m, refactor_every=384, unroll=1, polish_pivots=4),
+        tuned_config(m, refactor_every=384, polish_pivots=4),
         (maxiters or 2048),
     )
 
@@ -99,17 +79,12 @@ def recovery_cleanup_config(m: int, maxiters: Optional[int] = None):
 
     Recovery buckets start from a near-optimal Tapia-ranked IPM iterate,
     so they rarely need the exact pipeline's full pivot budget or its
-    tightest refactor cadence.  Round-5 probe at m=2048 (B=64, 6
-    stragglers): r128/unroll2/budget2048 ran 2.06x the raw IPM wall --
-    the round-4 miss -- vs r256/unroll2/budget1024 at 1.55x, identical
-    recovered counts.  Budget-exhausted lanes keep their IPM answer and
-    status (safe degradation), so the smaller budget trades nothing.
+    tightest refactor cadence: from m=1536 on they refactorize every 256
+    pivots with a 1024-pivot budget.  Budget-exhausted lanes keep their
+    IPM answer and status (safe degradation).
     """
     if m >= 1536:
-        return (
-            tuned_config(m, refactor_every=256, unroll=2),
-            (maxiters or 1024),
-        )
+        return tuned_config(m, refactor_every=256), (maxiters or 1024)
     return exact_cleanup_config(m, maxiters)
 
 
@@ -131,7 +106,7 @@ def solve_batch_auto(c, G, h, accuracy: float = 1e-6,
                      maxiters: Optional[int] = None,
                      cfg: Optional[SolverConfig] = None,
                      prefer: Optional[str] = None):
-    """Solve a batch of canonical-form LPs with the measured-best family.
+    """Solve a batch of canonical-form LPs with the calibrated family.
 
     ``c[B, n], G[B, m, n], h[B, m]`` (dense, same shape per lane) for
     ``min c'x  s.t.  Gx <= h, x >= 0``.  ``accuracy`` is the requested
@@ -204,14 +179,11 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
                       guess: str = "tapia"):
     """Exact vertices at Newton-step speed: IPM -> crossover -> fallback.
 
-    The fastest measured EXACT pipeline for ``m >= 256``: batched
-    inverse-factor Mehrotra IPM to the f32 KKT floor, the dual-then-primal
-    crossover cleanup to an exact verified vertex, and -- for the rare
-    lanes that fail to cross -- a gathered two-phase simplex fallback so
-    every returned OPTIMAL is vertex-exact with a basis certificate.
-    Measured v5e (B=1024, m=n=256, tuned config): 631 LPs/s with
-    1024/1024 crossed, max HiGHS gap ~1e-7 -- vs 570 LPs/s for the pure
-    simplex pipeline at a 3.1e-6 gap.
+    Batched inverse-factor Mehrotra IPM to the f32 KKT floor, the
+    dual-then-primal crossover cleanup to an exact verified vertex, and --
+    for the rare lanes that fail to cross -- a gathered two-phase simplex
+    fallback so every returned OPTIMAL is vertex-exact with a basis
+    certificate.
 
     Returns ``(BatchResult, info)`` with ``x`` over the structural
     columns; ``info["crossed"]``/``info["fallback"]`` record the path
@@ -225,7 +197,7 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
     if cfg is None:
         cfg, budget = exact_cleanup_config(m, maxiters)
     else:
-        budget = maxiters or (512 if m <= _xover_pallas_max_m() else 2048)
+        budget = maxiters or (512 if m <= _cleanup_tuned_seg_max_m() else 2048)
 
     res, crossed = ipm_crossover_batch_canonical(
         c, G, h, crossover_maxiters=budget, cfg=cfg, guess=guess
@@ -238,12 +210,13 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
         return res, info
 
     retry_plan = None
-    if _xover_pallas_max_m() < m < 1536:
-        # Beyond the mega-kernel boundary the two-phase fallback is the
-        # wrong first tool (round-5 bench: 1.3 s for ONE m=1024 lane).
-        # Retry the pipeline on the gathered bucket with the ALTERNATE
-        # basis-guess ranking: the round-5 stubborn-lane probe showed
-        # this failure mode is a per-lane GUESS pathology, not budget --
+    if _cleanup_tuned_seg_max_m() < m < 1536:
+        # Beyond the tuned-segment boundary a failed lane has used the
+        # larger tight-cadence budget, the signature of a bad guess.
+        # At these sizes the two-phase fallback is the wrong first tool
+        # (thousands of pivots for ONE lane).  Retry the pipeline on the
+        # gathered bucket with the ALTERNATE basis-guess ranking: this
+        # failure mode is a per-lane GUESS pathology, not budget --
         # a lane that burned 4096 Tapia-guess pivots without terminating
         # crossed in NINE pivots from the magnitude guess (tapia and
         # magnitude fail on DIFFERENT lanes; tapia is far better on
@@ -253,10 +226,10 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
         retry_plan = ("magnitude" if guess == "tapia" else "tapia",
                       budget)
     elif m >= 3072:
-        # at this size two-phase cannot converge affordably (measured
-        # 35 s iter-limited, uncertifiable); the only repair evidence is
-        # BUDGET sensitivity (round 4: 2/4 crossed at 768, 3/4 at 2048)
-        # -- retry the same guess with double budget
+        # at this size two-phase cannot converge affordably (it hits its
+        # iteration limit, uncertifiable); the only repair evidence is
+        # BUDGET sensitivity (2/4 crossed at 768, 3/4 at 2048) -- retry
+        # the same guess with double budget
         retry_plan = (guess, 2 * budget)
     if retry_plan is not None:
         alt, r_budget = retry_plan
@@ -308,7 +281,7 @@ def solve_batch_exact(c, G, h, cfg: Optional[SolverConfig] = None,
         return res, info
     if m >= 3072:
         # no affordable exact repair remains at this size (two-phase
-        # measured 35 s/attempt WITHOUT converging); the lane keeps its
+        # does not converge within its budget); the lane keeps its
         # IPM answer and its honest non-crossed status
         info["uncrossed"] = int(bad.size)
         return res, info
@@ -370,9 +343,8 @@ def choose_family_sparse(m: int, n: int, nnz: int, accuracy: float,
 
     Two families exist at the sparse frontier (VERDICT r4 item 4 asked
     for this entry point): the shared-pattern sparse IPM (eps 1e-3 KKT
-    class, a dense ``[B, m, m]`` Cholesky per Newton step -- measured
-    38 LPs/s at m=2048/1%, BEATING the sparse PDHG's 36.5 at a 10x
-    looser class) and the matrix-free sparse PDHG (eps ~1e-4, no m^2
+    class, a dense ``[B, m, m]`` Cholesky per Newton step) and the
+    matrix-free sparse PDHG (eps ~1e-4, no m^2
     memory at all).  Rules:
 
     * the IPM's dense normal factor needs ``lanes * m^2`` f32 resident
@@ -386,9 +358,7 @@ def choose_family_sparse(m: int, n: int, nnz: int, accuracy: float,
       family is orders of magnitude less work before its accuracy
       ceiling matters.
     * everything tighter routes ``ipm``: at eps <= 1e-3 the PDHG cannot
-      reliably certify, and head-to-head at the benched regime
-      (m=2048, 1%, eps 1e-3 vs 1e-4) the sparse IPM measured FASTER at
-      the 10x tighter class (38 vs 36.5 LPs/s).
+      reliably certify.
     """
     factor_bytes = 4.0 * lanes * m * m
     if factor_bytes > 4 * 1024**3:

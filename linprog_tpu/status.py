@@ -2,7 +2,7 @@
 
 The reference surfaces solver outcomes as six exception classes raised
 mid-iteration (reference ``linprog/exceptions.py:1-22``).  Exceptions cannot
-cross ``jit``/``vmap`` boundaries, so the TPU engine computes a per-instance
+cross ``jit``/``vmap`` boundaries, so the engine computes a per-instance
 *status code* branchlessly inside the compiled loop, and a thin host wrapper
 re-raises the matching exception for API parity with the reference.
 """

@@ -5,8 +5,7 @@ exactly the regime where Dantzig pricing is near-optimal and nothing
 interesting happens numerically.  Real LPs (and the netlib set, which a
 zero-egress sandbox cannot download) are sparse, degenerate, and badly
 scaled.  These generators produce classic structured families with those
-properties; ``benchmarks/structured_suite.py`` and
-``tests/test_structured_suite.py`` round-trip them through the MPS
+properties; ``tests/test_structured_suite.py`` round-trips them through the MPS
 writer/reader and validate objectives against the HiGHS oracle.
 
 Reference analogue: its textbook problem bank

@@ -1,6 +1,6 @@
 """Numeric kernel utilities.
 
-TPU-native equivalents of the reference's ``linprog/utils.py``:
+JAX equivalents of the reference's ``linprog/utils.py``:
 
 * The masked ratio-test divisions are single fused VPU ops (``jnp.where``)
   instead of ``np.vectorize`` over a scalar Python lambda

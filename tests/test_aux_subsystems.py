@@ -172,7 +172,7 @@ def test_lane_permutation_determinism():
     c, G, h = random_inequality_lps(B, m, n, seed=23)
     cs, As, bs = to_standard_form_batch(c, G, h)
     cs, As, bs = jnp.asarray(cs), jnp.asarray(As), jnp.asarray(bs)
-    cfg = SolverConfig(kernels="xla")
+    cfg = SolverConfig()
     res = solve_batch_two_phase(cs, As, bs, 400, 400, cfg)
 
     perm = np.random.default_rng(0).permutation(B)
@@ -205,7 +205,7 @@ def test_debug_nans_mode_clean_on_healthy_batch():
     try:
         res = solve_batch_two_phase(
             jnp.asarray(cs), jnp.asarray(As), jnp.asarray(bs), 300, 300,
-            SolverConfig(kernels="xla", polish_pivots=4),
+            SolverConfig(polish_pivots=4),
         )
         assert np.isfinite(np.asarray(res.cost)).all()
         assert (np.asarray(res.status) == st.OPTIMAL).all()
@@ -234,7 +234,7 @@ def test_scaled_cost_optimality_tolerance():
     cs, As, bs = to_standard_form_batch(c, G, h)
     res = solve_batch_two_phase(
         jnp.asarray(cs), jnp.asarray(As), jnp.asarray(bs), 500, 500,
-        SolverConfig(kernels="xla"),
+        SolverConfig(),
     )
     assert (np.asarray(res.status) == st.OPTIMAL).all()
     gaps = np.abs(np.asarray(res.cost) - ref) / np.maximum(1, np.abs(ref))

@@ -20,7 +20,7 @@ from linprog_tpu.generators import random_inequality_lps
 from linprog_tpu.router import solve_batch_exact
 
 B, M, N = 12, 20, 20
-CFG = SolverConfig(kernels="xla", pricing="dantzig", refactor_every=64,
+CFG = SolverConfig(pricing="dantzig", refactor_every=64,
                    polish_pivots=8)
 
 

@@ -19,7 +19,7 @@ from linprog_tpu.crossover import (
 )
 from linprog_tpu.generators import random_inequality_lps
 
-CFG = SolverConfig(kernels="xla", polish_pivots=0)
+CFG = SolverConfig(polish_pivots=0)
 
 
 def _highs(c, G, h):
@@ -115,7 +115,7 @@ def test_ipm_crossover_dual_cleanup_crosses_all_lanes():
     B, m, n = 32, 64, 64
     c, G, h = random_inequality_lps(B, m, n, seed=21)
     c, G, h = jnp.asarray(c), jnp.asarray(G), jnp.asarray(h)
-    cfg = SolverConfig(kernels="xla", polish_pivots=8, pricing="dantzig",
+    cfg = SolverConfig(polish_pivots=8, pricing="dantzig",
                        refactor_every=128)
     res, crossed = ipm_crossover_batch_canonical(c, G, h, cfg=cfg)
     ok = np.asarray(crossed)
@@ -150,3 +150,28 @@ def test_crossover_repairs_infeasible_guess_via_dual_pivots():
     assert ok.sum() >= B - 1  # the dual repair recovers (nearly) all lanes
     gaps = np.abs(np.asarray(res.cost) - ref) / np.maximum(1, np.abs(ref))
     assert gaps[ok].max() < 1e-5
+
+
+def test_magnitude_guess_matches_implicit_ranking_and_shares_compile():
+    """The magnitude guess hands crossover the ranking it would compute
+    itself: same answers as ``indicator=None`` at the IPM point, and no
+    second compile beside the Tapia guess."""
+    from linprog_tpu.crossover import ipm_crossover_batch_canonical
+    from linprog_tpu.ipm import DEFAULT_IPM_CONFIG, _ipm_canonical_jit
+
+    B, m, n = 4, 10, 14
+    c, G, h = (jnp.asarray(a) for a in random_inequality_lps(B, m, n, seed=5))
+    ipm_crossover_batch_canonical(c, G, h, crossover_maxiters=64, cfg=CFG)
+    before = crossover_batch_canonical._cache_size()
+    res, crossed = ipm_crossover_batch_canonical(
+        c, G, h, crossover_maxiters=64, cfg=CFG, guess="magnitude")
+    assert crossover_batch_canonical._cache_size() == before
+
+    cs = jnp.concatenate([c, jnp.zeros((B, m), c.dtype)], axis=1)
+    x = _ipm_canonical_jit(cs, G, h, DEFAULT_IPM_CONFIG).x[:, :n]
+    ref, ref_crossed = crossover_batch_canonical(c, G, h, x, maxiters=64,
+                                                 cfg=CFG)
+    np.testing.assert_array_equal(np.asarray(crossed),
+                                  np.asarray(ref_crossed))
+    np.testing.assert_array_equal(np.asarray(res.basis)[np.asarray(crossed)],
+                                  np.asarray(ref.basis)[np.asarray(crossed)])

@@ -109,31 +109,23 @@ def _beale_batch(B=3):
     return cb, Ab, bb, states, allowed
 
 
-@pytest.mark.parametrize("path", ["xla", "mega", "stream"])
-def test_stall_escalation_breaks_beale_cycle(path):
+@pytest.mark.parametrize("pricing,refactor_every", [
+    ("dantzig", 64), ("dantzig", 0), ("devex", 64),
+])
+def test_stall_escalation_breaks_beale_cycle(pricing, refactor_every):
     """Dantzig provably cycles on Beale; with stall_limit the stalled lane
-    flips to Bland in-kernel and terminates OPTIMAL (SURVEY section-5
+    flips to Bland and terminates OPTIMAL (SURVEY section-5
     failure-detection plan; reference's cycle-safe default is Bland,
     /root/reference/linprog/primal_solvers.py:135-138)."""
     import numpy as _np
 
     from linprog_tpu import status as st
-    from linprog_tpu.engine_batched import (
-        run_batched,
-        run_batched_pallas,
-        run_batched_stream,
-    )
+    from linprog_tpu.engine_batched import run_batched
 
-    cfg = SolverConfig(pricing="dantzig", stall_limit=8, refactor_every=64,
-                       kernels="pallas" if path != "xla" else "xla")
+    cfg = SolverConfig(pricing=pricing, stall_limit=8,
+                       refactor_every=refactor_every)
     cb, Ab, bb, states, allowed = _beale_batch()
-    if path == "xla":
-        out = run_batched(cb, Ab, bb, states, allowed, 200, cfg)
-    elif path == "mega":
-        out = run_batched_pallas(cb, Ab, bb, states, allowed, 200, cfg)
-    else:
-        out = run_batched_stream(cb, Ab, bb, states, allowed, 200, cfg,
-                                 variant="resident", n_blk=0)
+    out = run_batched(cb, Ab, bb, states, allowed, 200, cfg)
     assert (_np.asarray(out.status) == st.OPTIMAL).all(), _np.asarray(out.status)
     # optimal cost -0.05 at x6 = 1
     cost = _np.einsum(
@@ -144,19 +136,18 @@ def test_stall_escalation_breaks_beale_cycle(path):
     assert _np.allclose(cost, -0.05, atol=1e-6)
 
 
-@pytest.mark.parametrize("path", ["xla", "mega"])
-def test_stall_limit_zero_preserves_cycling(path):
+@pytest.mark.parametrize("refactor_every", [0, 16])
+def test_stall_limit_zero_preserves_cycling(refactor_every):
     """With stall_limit=0 the legacy behavior (cycle to the iter cap) is
     preserved bit-for-bit -- guards against silently changing pivot paths."""
     import numpy as _np
 
     from linprog_tpu import status as st
-    from linprog_tpu.engine_batched import run_batched, run_batched_pallas
+    from linprog_tpu.engine_batched import run_batched
 
-    cfg = SolverConfig(pricing="dantzig", stall_limit=0, refactor_every=0,
-                       kernels="pallas" if path == "mega" else "xla")
+    cfg = SolverConfig(pricing="dantzig", stall_limit=0,
+                       refactor_every=refactor_every)
     cb, Ab, bb, states, allowed = _beale_batch()
-    run = run_batched_pallas if path == "mega" else run_batched
-    out = run(cb, Ab, bb, states, allowed, 60, cfg)
+    out = run_batched(cb, Ab, bb, states, allowed, 60, cfg)
     assert (_np.asarray(out.status) == st.RUNNING).all()
     assert (_np.asarray(out.iters) == 60).all()

@@ -96,7 +96,8 @@ def test_pad_problem_preserves_solution_space():
 def test_fast_and_tuned_configs():
     from linprog_tpu.config import FAST_CONFIG, tuned_config
 
-    assert FAST_CONFIG.kernels == "pallas" and FAST_CONFIG.packed_select
+    assert FAST_CONFIG.pricing == "dantzig" and FAST_CONFIG.polish_pivots
+    assert FAST_CONFIG.compact_refactor and FAST_CONFIG.stall_limit > 0
     assert tuned_config(256).refactor_every == 512
     assert tuned_config(512).refactor_every == 768
     assert tuned_config(1024).refactor_every == 1024

@@ -342,7 +342,7 @@ def test_pooled_straggler_recovery_across_chunks():
     assert all(
         int((np.asarray(r.status) == stt.OPTIMAL).sum()) < 8 for r in raws
     )
-    rc = SolverConfig(kernels="xla", pricing="dantzig", refactor_every=64,
+    rc = SolverConfig(pricing="dantzig", refactor_every=64,
                       polish_pivots=8)
     recs = recover_stragglers_pooled(batches, raws, recover_cfg=rc,
                                      maxiters=400)

@@ -64,7 +64,7 @@ def test_sparse_op_matches_dense_slack_op():
     d = jnp.asarray(0.1 + rng.random((B, N + M)), jnp.float32)
     assert float(jnp.max(jnp.abs(op.mv(v) - dop.mv(v)))) < 1e-4
     assert float(jnp.max(jnp.abs(op.mtv(w) - dop.mtv(w)))) < 1e-4
-    # the pair-scatter normal assembly is the TPU-critical piece
+    # the pair-scatter normal assembly is the device-critical piece
     assert float(jnp.max(jnp.abs(op.normal(d) - dop.normal(d)))) < 1e-3
     assert np.allclose(
         np.asarray(op.max_abs()), np.asarray(dop.max_abs()), rtol=1e-6

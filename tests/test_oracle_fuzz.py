@@ -1,4 +1,4 @@
-"""Pivot-path fuzzing: the TPU engine must walk the oracle's exact basis
+"""Pivot-path fuzzing: the JAX engine must walk the oracle's exact basis
 sequence on random instances (both pricing rules).
 
 This is the strongest correctness check we have: two independent

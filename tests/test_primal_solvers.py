@@ -102,11 +102,11 @@ def test_devex_real_implementation_on_xla_batched_path():
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # real devex must NOT warn
         res_dv = solve_batch_two_phase(
-            cs, As, bs, 200, 200, SolverConfig(pricing="devex", kernels="xla")
+            cs, As, bs, 200, 200, SolverConfig(pricing="devex")
         )
     res_dz = solve_batch_two_phase(
         cs, As, bs, 200, 200,
-        SolverConfig(pricing="dantzig", kernels="xla"),
+        SolverConfig(pricing="dantzig"),
     )
     assert np.all(np.asarray(res_dv.status) == 1)
     # same optima (pivot PATHS may differ -- different rules)

@@ -216,7 +216,7 @@ def test_ill_conditioned_instances_never_silently_wrong():
          np.broadcast_to(np.eye(m, dtype=np.float32), (B, m, m))], axis=2
     )
     bs = h.astype(np.float32)
-    # f32 path with polish: the realistic TPU configuration
+    # f32 path with polish: the realistic device configuration
     cfg = SolverConfig(pricing="dantzig", refactor_every=64,
                        polish_pivots=8)
     res = solve_batch_two_phase(jnp.asarray(cs), jnp.asarray(As),

@@ -41,8 +41,9 @@ def test_dd_rowmat_beats_f32():
     err_plain = np.max(np.abs(plain - exact32) / scale)
     err_dd = np.max(np.abs(dd - exact32) / scale)
     # CPU XLA's f32 einsum uses pairwise accumulation and is already near
-    # eps (on TPU the plain path is far worse); dd must still not lose to
-    # it and must sit at the ~eps floor rather than eps*sqrt(m)
+    # eps (with reduced-precision matmuls the plain path is far worse); dd
+    # must still not lose to it and must sit at the ~eps floor rather than
+    # eps*sqrt(m)
     assert err_dd <= err_plain
     assert err_dd < 5e-8
     del exact

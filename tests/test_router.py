@@ -16,9 +16,8 @@ from linprog_tpu.config import SolverConfig
 from linprog_tpu.generators import random_inequality_lps
 
 
-def test_routing_rules_match_measured_table():
+def test_routing_rules_match_cpu_table():
     # exact accuracy: simplex small, ipm+crossover from m=256 up
-    # (measured v5e: m=128 simplex 2083 vs xover 1596; m=256 570 vs 631)
     assert choose_family(128, 1e-6) == "simplex"
     assert choose_family(256, 1e-6) == "ipm+crossover"
     assert choose_family(512, 1e-6) == "ipm+crossover"
@@ -52,7 +51,7 @@ def test_every_family_solves_correctly(prefer, tol):
     c, G, h = jnp.asarray(c), jnp.asarray(G), jnp.asarray(h)
     cfg = None
     if prefer == "simplex":
-        cfg = SolverConfig(kernels="xla", polish_pivots=4,
+        cfg = SolverConfig(polish_pivots=4,
                            pricing="dantzig", refactor_every=128)
     res, info = solve_batch_auto(c, G, h, accuracy=1e-4, prefer=prefer,
                                  cfg=cfg)
@@ -72,7 +71,7 @@ def test_auto_choice_and_summary():
     c, G, h = random_inequality_lps(B, m, n, seed=6)
     res, info = solve_batch_auto(
         jnp.asarray(c), jnp.asarray(G), jnp.asarray(h), accuracy=1e-6,
-        cfg=SolverConfig(kernels="xla", pricing="dantzig",
+        cfg=SolverConfig(pricing="dantzig",
                          refactor_every=128),
     )
     assert info["family"] == "simplex"  # m=12, exact
@@ -99,7 +98,7 @@ def test_solve_batch_exact_fallback_guarantees_vertices():
     B, m, n = 8, 32, 32
     c, G, h = random_inequality_lps(B, m, n, seed=8)
     c, G, h = jnp.asarray(c), jnp.asarray(G), jnp.asarray(h)
-    cfg = SolverConfig(kernels="xla", pricing="dantzig", refactor_every=128,
+    cfg = SolverConfig(pricing="dantzig", refactor_every=128,
                        polish_pivots=4)
     # polish-free 1-pivot budget with the weaker magnitude ranking: some
     # guesses stay primal-infeasible, forcing the two-phase fallback
@@ -121,23 +120,23 @@ def test_solve_batch_exact_fallback_guarantees_vertices():
 
 
 def test_injected_calibration_table_flips_routing():
-    """VERDICT r3 item 9: the routing thresholds are per-chip measurements
-    in one data file; an injected fake-measurement table must flip the
-    family choice (and tuned_config's segment knee) without code edits."""
+    """The routing thresholds are per-device measurements in one data file;
+    an injected fake-measurement table must flip the family choice (and
+    tuned_config's segment knee) without code edits."""
     from linprog_tpu import calibration
     from linprog_tpu.config import tuned_config
 
     base = choose_family(128, 1e-6)
-    assert base == "simplex"  # v5e default: simplex wins to m=192
+    assert base == "simplex"  # cpu table: simplex up to m=192
     seg_base = tuned_config(128).refactor_every
     try:
         calibration.set_table({
-            "default": {
+            "cpu": {
                 "exact_simplex_max_m": 4,
                 "moderate_simplex_max_m": 4,
                 "pdhg_min_m": 64,
                 "exact_eps": 1e-5,
-                "xover_pallas_max_m": 512,
+                "cleanup_tuned_seg_max_m": 512,
                 "seg_by_m": [[0, 96]],
             }
         })
@@ -150,83 +149,84 @@ def test_injected_calibration_table_flips_routing():
     assert tuned_config(128).refactor_every == seg_base
 
 
-def test_calibration_partial_table_falls_back_to_default():
+def test_calibration_unknown_device_raises():
+    """A device with no entry must not borrow another device's timings:
+    the lookup raises and names the command that measures an entry."""
     from linprog_tpu import calibration
+    from linprog_tpu.config import tuned_config
 
+    with pytest.raises(calibration.UncalibratedDeviceError,
+                       match="calibrate"):
+        calibration.get_table("made-up-chip")
     try:
-        calibration.set_table({
-            "default": dict(calibration.get_table("default")),
-            "made-up-chip": {"exact_simplex_max_m": 7},
-        })
-        t = calibration.get_table("made-up-chip")
-        assert t["exact_simplex_max_m"] == 7
-        # missing keys inherit the default entry
-        assert t["pdhg_min_m"] == 4096
-        assert t["seg_by_m"]
+        calibration.set_table({"made-up-chip": {}})
+        with pytest.raises(calibration.UncalibratedDeviceError):
+            choose_family(256, 1e-6)  # the live device (cpu) has no entry
+        with pytest.raises(calibration.UncalibratedDeviceError):
+            tuned_config(256)
     finally:
         calibration.reset_table()
 
 
-def test_env_override_without_default_falls_back_to_packaged(tmp_path,
-                                                             monkeypatch):
-    """ADVICE r4: LINPROG_TPU_CALIBRATION pointing at an override file
-    WITHOUT a 'default' entry used to re-read the same override for the
-    fallback, so missing keys raised KeyError downstream.  The packaged
-    v5e defaults must fill the gaps regardless of the override source."""
+def test_calibration_partial_entry_raises():
+    """An entry missing a threshold is an error naming the missing key,
+    never a silent fill-in from another device's entry."""
+    from linprog_tpu import calibration
+
+    try:
+        table = dict(calibration.get_table("cpu"))
+        del table["pdhg_min_m"]
+        calibration.set_table({"cpu": table})
+        with pytest.raises(calibration.UncalibratedDeviceError,
+                           match="pdhg_min_m"):
+            calibration.get_table()
+    finally:
+        calibration.reset_table()
+
+
+def test_env_override_file_is_the_only_source(tmp_path, monkeypatch):
+    """LINPROG_TPU_CALIBRATION replaces the packaged file: its entries are
+    read, and a device it does not list raises."""
     import json
 
     from linprog_tpu import calibration
-    from linprog_tpu.config import tuned_config
 
+    entry = dict(calibration.get_table("cpu"), exact_simplex_max_m=9)
     p = tmp_path / "override.json"
-    p.write_text(json.dumps({"weird-chip": {"exact_simplex_max_m": 9}}))
+    p.write_text(json.dumps({"weird-chip": entry}))
     monkeypatch.setenv("LINPROG_TPU_CALIBRATION", str(p))
     calibration.reset_table()  # drop the cached packaged file
     try:
         t = calibration.get_table("weird-chip")
         assert t["exact_simplex_max_m"] == 9
-        assert t["pdhg_min_m"] == 4096  # packaged default fills the gap
-        assert calibration.seg_for_m(256, "weird-chip") > 0
+        assert calibration.seg_for_m(256, "weird-chip") == 512
+        with pytest.raises(calibration.UncalibratedDeviceError):
+            calibration.get_table("cpu")
     finally:
         monkeypatch.delenv("LINPROG_TPU_CALIBRATION")
         calibration.reset_table()
 
 
 def test_calibrate_measures_every_table_key():
-    """VERDICT r4 weak 5: calibrate() used to measure only the two simplex
-    thresholds; every routing key must now be derived from live timings
-    (tiny sizes here -- the values are CPU-meaningless, the MEASUREMENT
-    coverage is what's under test)."""
+    """Every routing key is derived from live timings (tiny sizes here --
+    the values are CPU-meaningless, the MEASUREMENT coverage is what's
+    under test)."""
     from linprog_tpu import calibration
 
-    import jax
-
-    # clear BEFORE as well as after: calibrate() itself compiles ~15
-    # fresh programs, and with the round-5 suite's larger accumulated
-    # compile count the XLA CPU backend aborts DURING them otherwise
-    jax.clear_caches()
-    try:
-        out = calibration.calibrate(sizes=(16,), lanes=4, seg_grid=(8, 16),
-                                    pdhg_sizes=(16,), pdhg_lanes=4)
-    finally:
-        # calibrate() compiles ~15 fresh programs; drop them so the XLA
-        # CPU compiler's accumulated state does not abort the Pallas
-        # kernel suites that collect right after this file (the same
-        # workaround tests/test_stream_kernel.py carries)
-        jax.clear_caches()
+    out = calibration.calibrate(sizes=(16,), lanes=4, seg_grid=(8, 16),
+                                pdhg_sizes=(16,), pdhg_lanes=4)
     (kind, table), = out.items()
-    assert set(table["_measured"]) == {
-        "exact_simplex_max_m", "moderate_simplex_max_m",
-        "xover_pallas_max_m", "exact_eps", "seg_by_m", "pdhg_min_m",
-    }
+    assert kind == "cpu"
+    assert set(table["_measured"]) == set(calibration.REQUIRED_KEYS)
+    assert table["exact_eps"] >= 1e-5  # the moderate IPM's own floor
     assert table["seg_by_m"][0][0] == 16  # measured knee row
     assert table["seg_by_m"][-1][0] == 0  # terminal row retained
 
 
 def test_shipped_calibration_has_no_copied_chip_entries():
-    """VERDICT r4 weak 5: the shipped 'TPU v5 lite' entry was a byte-copy
-    of 'default'.  Any non-default chip entry in the packaged data file
-    must carry a '_measured' provenance list (i.e. come from calibrate())."""
+    """Every device entry in the packaged data file except the CPU test
+    routing must carry a '_measured' provenance list (i.e. come from
+    calibrate())."""
     import json
 
     from linprog_tpu.calibration import _DATA_PATH
@@ -234,30 +234,30 @@ def test_shipped_calibration_has_no_copied_chip_entries():
     with open(_DATA_PATH) as f:
         data = json.load(f)
     for kind, entry in data.items():
-        if kind in ("_comment", "default"):
+        if kind in ("_comment", "cpu"):
             continue
         assert "_measured" in entry, (
             f"chip entry {kind!r} lacks measurement provenance"
         )
 
 
-def test_exact_fallback_retries_crossover_beyond_mega_boundary():
-    """Round 5: beyond the mega-kernel boundary, uncrossed lanes first
-    get an IPM->crossover RETRY at double budget (the two-phase fallback
-    measured 1.3 s/lane at m=1024 and cannot even converge at m=4096);
-    only still-uncrossed lanes fall to the two-phase.  Exercised on CPU
-    by shrinking the boundary via an injected calibration table."""
+def test_exact_fallback_retries_crossover_beyond_tuned_seg_boundary():
+    """Beyond ``cleanup_tuned_seg_max_m``, uncrossed lanes first get an
+    IPM->crossover RETRY with the alternate guess (the two-phase fallback
+    costs thousands of pivots per lane there); only still-uncrossed lanes
+    fall to the two-phase.  Exercised on CPU by shrinking the boundary via
+    an injected calibration table."""
     from linprog_tpu import calibration
 
     B, m, n = 8, 20, 20
     c, G, h = random_inequality_lps(B, m, n, seed=31)
     c, G, h = jnp.asarray(c), jnp.asarray(G), jnp.asarray(h)
-    cfg = SolverConfig(kernels="xla", pricing="dantzig", refactor_every=64,
+    cfg = SolverConfig(pricing="dantzig", refactor_every=64,
                        polish_pivots=8)
-    table = dict(calibration.get_table("default"))
-    table["xover_pallas_max_m"] = 8  # m=20 now routes "beyond mega"
+    table = dict(calibration.get_table("cpu"))
+    table["cleanup_tuned_seg_max_m"] = 8  # m=20 now routes the tight cadence
     try:
-        calibration.set_table({"default": table})
+        calibration.set_table({"cpu": table})
         # a starved budget leaves lanes uncrossed; the retry at double
         # budget must repair them before any two-phase fallback runs
         res, info = solve_batch_exact(c, G, h, cfg=cfg, maxiters=6)

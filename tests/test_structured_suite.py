@@ -93,7 +93,7 @@ def test_devex_vs_dantzig_pivot_counts_on_structured_suite():
     assert len(probs) >= 4
     totals = {}
     for rule in ("dantzig", "devex"):
-        cfg = SolverConfig(pricing=rule, kernels="xla", refactor_every=128,
+        cfg = SolverConfig(pricing=rule, refactor_every=128,
                            polish_pivots=0)
         res = solve_batch_general(probs, 3000, 3000, cfg)
         assert all(r.optimum for r in res), rule
